@@ -14,10 +14,15 @@ Layouts: conv kernels (kh, kw, I, O) / (k, I, O) become (O, I, kh, kw) /
 (O, I, k); Dense layers that stand in for 1x1 convs become (O, I, 1[, 1]);
 transposed-conv kernels (k.., I, O) become torch's (I, O, k..); flax
 BatchNorm ``mean`` / ``var`` become ``running_mean`` / ``running_var``.
-A SyncNet stream that the flax variables lack (a face-mode FaceTTS init
-never runs the audio stream) is left out; load such a state_dict with
-``strict=False``.  This is the exact inverse of the JAX package's torch importers
-(``train/checkpoint.py``), which the round-trip test holds it to.
+Variables initialised through ``FaceTTS.compute_loss`` hold the whole model
+that the loss runs, the SyncNet audio stream and its ``batch_stats``
+included.  A SyncNet stream that the flax variables lack (an inference-only
+face-mode init never runs the audio stream; a speech-mode loss never runs
+the image stream) is left out; load such a state_dict with ``strict=False``.
+Without ``batch_stats`` the BatchNorm running statistics are left out: that
+is how a JAX gradient tree, ``{"params": grads}``, comes under the port's
+parameter names.  This is the exact inverse of the JAX package's torch
+importers (``train/checkpoint.py``), which the round-trip test holds it to.
 """
 
 from typing import Any, Dict
@@ -53,7 +58,7 @@ def _convt1d(k) -> np.ndarray:
 
 class _SD(dict):
     def put(self, name: str, value) -> None:
-        self[name] = torch.from_numpy(np.ascontiguousarray(_a(value)))
+        self[name] = torch.from_numpy(np.array(value, dtype=np.float32))
 
 
 def _text_encoder(sd: _SD, p: Dict[str, Any], pre: str) -> None:
@@ -166,6 +171,8 @@ _SYNC_IDX = {
 def _bn(sd: _SD, name: str, p, s) -> None:
     sd.put(name + ".weight", p["scale"])
     sd.put(name + ".bias", p["bias"])
+    if s is None:
+        return
     sd.put(name + ".running_mean", s["mean"])
     sd.put(name + ".running_var", s["var"])
     sd[name + ".num_batches_tracked"] = torch.tensor(0)
@@ -179,11 +186,13 @@ def _syncnet(sd: _SD, p, s, pre: str) -> None:
             c = p[f"{stream}_c{n}"]
             sd.put(f"{pre}netcnn{stream}.{ci}.weight", _conv2d(c["conv"]["kernel"]))
             sd.put(f"{pre}netcnn{stream}.{ci}.bias", c["conv"]["bias"])
-            _bn(sd, f"{pre}netcnn{stream}.{bi}", c["bn"], s[f"{stream}_c{n}"]["bn"])
-        h, hs = p[f"{stream}_head"], s[f"{stream}_head"]
+            _bn(sd, f"{pre}netcnn{stream}.{bi}", c["bn"],
+                None if s is None else s[f"{stream}_c{n}"]["bn"])
+        h = p[f"{stream}_head"]
         sd.put(f"{pre}netfc{stream}.0.weight", _dense_as_conv(h["fc1"]["kernel"], 1))
         sd.put(f"{pre}netfc{stream}.0.bias", h["fc1"]["bias"])
-        _bn(sd, f"{pre}netfc{stream}.1", h["bn"], hs["bn"])
+        _bn(sd, f"{pre}netfc{stream}.1", h["bn"],
+            None if s is None else s[f"{stream}_head"]["bn"])
         sd.put(f"{pre}netfc{stream}.3.weight", _dense_as_conv(h["fc2"]["kernel"], 1))
         sd.put(f"{pre}netfc{stream}.3.bias", h["fc2"]["bias"])
 
@@ -212,12 +221,13 @@ def syncnet_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any]
 
 def facetts_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX FaceTTS variables ``{"params", "batch_stats"}`` -> the port's
-    ``FaceTTS`` state_dict."""
+    ``FaceTTS`` state_dict (``{"params": grads}`` -> gradients by name)."""
     p = variables["params"]
     sd = _SD()
     _text_encoder(sd, p["encoder"], "encoder.")
     _unet(sd, p["decoder"]["estimator"], "decoder.estimator.")
-    _syncnet(sd, p["syncnet"], variables["batch_stats"]["syncnet"], "syncnet.")
+    stats = variables.get("batch_stats")
+    _syncnet(sd, p["syncnet"], None if stats is None else stats["syncnet"], "syncnet.")
     return dict(sd)
 
 

@@ -1,13 +1,17 @@
-"""SyncNet face embedder (reference model/syncnet_hifigan.py:8-145), in torch.
+"""SyncNet face/voice embedder (reference model/syncnet_hifigan.py:8-145), in torch.
 
-Port of the JAX package's ``models/syncnet.py`` image stream: a 224x224 face
-(B, 224, 224, 3), BGR 0..255, goes through the ``netcnnimg`` trunk and the
-``netfcimg`` 1x1-conv head to a (B, n_out) embedding.  BatchNorm runs on its
-running statistics (eps 1e-5), as the JAX package runs it at inference.
+Port of the JAX package's ``models/syncnet.py``.  The image stream takes a
+224x224 face (B, 224, 224, 3), BGR 0..255, through the ``netcnnimg`` trunk
+and the ``netfcimg`` 1x1-conv head to a (B, n_out) embedding.  The audio
+stream takes a mel image NCHW (B, 1, n_mels, T) -- the JAX layout is NHWC
+(B, n_mels, T, 1) -- through the ``netcnnaud`` trunk and the ``netfcaud``
+head: ``forward_aud`` gives the (B, T', n_out) voice-embedding track and
+``forward_perceptual`` the feature maps of the speaker-binding loss.
 
-The audio stream's parameters (``netcnnaud``, ``netfcaud``) are held so that
-a reference checkpoint loads whole; its forward passes (``forward_aud``,
-``forward_perceptual``) belong to the training slice.
+BatchNorm always runs on its running statistics (eps 1e-5), as the JAX
+package runs SyncNet inside ``compute_loss`` (``use_running_average``):
+:meth:`SyncNet.train` keeps the module in eval mode, so a training model's
+live dropout never switches SyncNet's BatchNorm to batch statistics.
 
 ``width_mult`` scales every trunk and head channel count (1.0 = the
 reference architecture); smaller values are for tests.
@@ -28,8 +32,11 @@ def _head(c_in, hidden, n_out):
 
 
 class SyncNet(nn.Module):
-    """Face embedder with the reference's module names (Sequential indices
-    match reference netcnnimg / netfcimg / netcnnaud / netfcaud)."""
+    """Face/voice embedder with the reference's module names (Sequential
+    indices match reference netcnnimg / netfcimg / netcnnaud / netfcaud)."""
+
+    # netcnnaud indices whose outputs are the six post-ReLU conv maps
+    _AUD_MAPS = (2, 6, 10, 14, 17, 21)
 
     def __init__(self, n_out: int = 512, stride: int = 1, width_mult: float = 1.0):
         super().__init__()
@@ -68,3 +75,33 @@ class SyncNet(nn.Module):
         (reference netcnnimg + netfcimg, syncnet_hifigan.py:55-84)."""
         h = self.netcnnimg(face.permute(0, 3, 1, 2))  # (B, C, 1, 1)
         return self.netfcimg(h.flatten(2))[..., 0]
+
+    def train(self, mode: bool = True):
+        """Stays in eval mode: BatchNorm on running statistics, always."""
+        return super().train(False)
+
+    def _aud(self, mel, collect=None):
+        h = mel
+        for i, layer in enumerate(self.netcnnaud):
+            h = layer(h)
+            if collect is not None and i in self._AUD_MAPS:
+                collect.append(h)
+        return h[:, :, 0]  # collapse the freq axis -> (B, 512, T')
+
+    def forward_aud(self, mel):
+        """(B, 1, n_mels, T) mel image -> (B, T', n_out) voice-embedding
+        track (reference netcnnaud + netfcaud)."""
+        return self.netfcaud(self._aud(mel)).transpose(1, 2)
+
+    def forward_perceptual(self, mel):
+        """Post-ReLU audio-stream feature maps and the embedding
+        (reference syncnet_hifigan.py:129-145): the 6 conv maps (B, C, H, W),
+        the fc map after its ReLU (B, hidden, T') and the head output
+        (B, n_out, T') -- 8 tensors."""
+        feats = []
+        h = self._aud(mel, feats)
+        head = self.netfcaud
+        h = head[2](head[1](head[0](h)))
+        feats.append(h)
+        feats.append(head[3](h))
+        return feats

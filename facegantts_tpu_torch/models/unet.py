@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from facegantts_tpu_torch.ops.gn_mish import gn_mish_mask, mish_f32
+from facegantts_tpu_torch.ops.groupnorm import group_norm
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -32,6 +33,24 @@ def mish(x: torch.Tensor) -> torch.Tensor:
 class Mish(nn.Module):
     def forward(self, x):
         return mish(x)
+
+
+class FusedGroupNorm(nn.Module):
+    """GroupNorm whose statistics come from kernel K2 (``ops/groupnorm.py``),
+    over NCHW (B, C, F, T), eps 1e-5.  Parameters and math are those of
+    ``nn.GroupNorm`` (``weight``, ``bias``).
+
+    As in the JAX package (``models/unet.py: FusedGroupNorm``), no model
+    uses it."""
+
+    def __init__(self, channels: int, groups: int = 8):
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return group_norm(x, self.weight, self.bias, self.groups, 1e-5)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Alignment / masking utilities (reference model/utils.py:6-40), in torch.
+"""Alignment / masking utilities (reference model/utils.py:6-45), in torch.
 
 Same math and layouts as the JAX package's ``ops/align.py``; the float
 cumulative sum in :func:`generate_path` and the float length sums upstream
@@ -35,3 +35,9 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     upper = (pos[None, None, :] < cum[:, :, None]).to(mask.dtype)
     lower = torch.nn.functional.pad(upper, (0, 0, 1, 0))[:, :-1]
     return (upper - lower) * mask
+
+
+def duration_loss(logw: torch.Tensor, logw_: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """MSE in the log-duration domain, normalised by the total text length
+    (model/utils.py:43-45)."""
+    return torch.sum((logw - logw_) ** 2) / torch.sum(lengths)

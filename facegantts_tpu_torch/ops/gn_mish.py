@@ -15,8 +15,11 @@ row of T frames.  It takes every shape with ``C % G == 0`` in f32 and bf16.
 The TPU kernel's lane packing, parity rows and group-indicator matmul exist
 only for the TPU's 128-lane layout and have no counterpart here.
 
-Gradients wait for the training slice (the JAX backward is autograd of the
-plain chain); the CUDA path refuses inputs that would need one.
+The gradient is the JAX package's ``custom_vjp``: the forward launches the
+kernel and saves x, scale and bias; the backward recomputes
+:func:`gn_mish_mask_ref` from them and takes its autograd (the JAX backward
+is ``jax.vjp`` of ``_xla_chain``; there is no backward kernel on either
+side).  ``lens`` gets no gradient.
 """
 
 import ctypes
@@ -108,10 +111,12 @@ def gn_mish_mask(x, scale, bias, lens, num_groups: int = 8, eps: float = 1e-5):
     if any(v.device != x.device for v in (scale, bias, lens)):
         raise ValueError("gn_mish_mask: all inputs must be on x's device")
     if torch.is_grad_enabled() and any(v.requires_grad for v in (x, scale, bias)):
-        raise RuntimeError(
-            "gn_mish_mask: the CUDA kernel has no backward yet; call it under "
-            "torch.no_grad() or torch.inference_mode()")
+        return _GnMishMask.apply(x, scale, bias, lens, num_groups, eps)
+    return _launch(x, scale, bias, lens, num_groups, eps)
 
+
+def _launch(x, scale, bias, lens, num_groups: int, eps: float):
+    b, c, f, t = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     nchunks, row_blocks = _grid(b, c, f, t, num_groups, sms)
     y = torch.empty_like(x)
@@ -127,3 +132,21 @@ def gn_mish_mask(x, scale, bias, lens, num_groups: int = 8, eps: float = 1e-5):
         raise RuntimeError(f"gn_mish_mask: CUDA kernel launch failed (cudaError {err})")
     kernels.LAUNCHES[NAME] += 1
     return y
+
+
+class _GnMishMask(torch.autograd.Function):
+    """Kernel forward; backward = autograd of the plain chain, recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, lens, num_groups, eps):
+        ctx.save_for_backward(x, scale, bias, lens)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        return _launch(x, scale, bias, lens, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, lens = ctx.saved_tensors
+        grads = kernels.recompute_vjp(gn_mish_mask_ref, (x, scale, bias),
+                                      ctx.needs_input_grad[:3], g, lens, ctx.num_groups,
+                                      ctx.eps)
+        return (*grads, None, None, None)

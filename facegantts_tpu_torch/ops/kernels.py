@@ -20,12 +20,15 @@ import subprocess
 import threading
 from typing import Dict, Iterable, Optional
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # kernel name -> source file under csrc/
-SOURCES = {"gn_mish": "gn_mish.cu"}
+SOURCES = {"gn_mish": "gn_mish.cu", "mas": "mas.cu", "groupnorm": "groupnorm.cu",
+           "probe": "probe.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -85,6 +88,18 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out
+
+
+def recompute_vjp(fn, inputs, needs, g, *args):
+    """Gradients of ``fn(*inputs, *args)`` against ``g``, recomputed under
+    autograd from detached inputs: the backward of a kernel whose JAX
+    counterpart is a ``custom_vjp`` over its plain version.  ``needs`` says
+    which inputs want a gradient; the others get None."""
+    with torch.enable_grad():
+        xs = [v.detach().requires_grad_(n) for v, n in zip(inputs, needs)]
+        wanted = [v for v in xs if v.requires_grad]
+        grads = iter(torch.autograd.grad(fn(*xs, *args), wanted, g) if wanted else ())
+    return tuple(next(grads) if v.requires_grad else None for v in xs)
 
 
 def library(name: str) -> ctypes.CDLL:

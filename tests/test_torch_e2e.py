@@ -26,6 +26,7 @@ from facegantts_tpu.models.facetts import FaceTTS as JFaceTTS
 from facegantts_tpu_torch import convert
 from facegantts_tpu_torch.config import default_config
 from facegantts_tpu_torch.models.facetts import FaceTTS
+from torch_cpu import torch_threads_started  # noqa: F401
 from tests.test_e2e_parity import DIMS, EST_SCALE, GOLDEN, RECIPE, Y_MAX, _inputs
 from tests.test_torch_models import _random_variables
 

@@ -39,7 +39,8 @@ def test_port_imports_with_jax_blocked():
     """Every module imports in a fresh interpreter where importing jax, flax
     or the JAX package fails."""
     mods = _port_modules()
-    assert "facegantts_tpu_torch.synthesis" in mods and len(mods) > 15
+    assert {"facegantts_tpu_torch.synthesis", "facegantts_tpu_torch.train.loop",
+            "facegantts_tpu_torch.ops.mas", "facegantts_tpu_torch.probe"} <= set(mods)
     code = (
         "import sys\n"
         + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
@@ -75,6 +76,22 @@ def test_synthesizer_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Synthesizer(Config())
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_trainer_and_probe_without_cuda_raise(monkeypatch):
+    """The training entry point and the probe default to the card, too."""
+    from facegantts_tpu_torch import probe
+    from facegantts_tpu_torch.config import Config
+    from facegantts_tpu_torch.train import __main__ as train_main
+    from facegantts_tpu_torch.train.loop import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(Config(use_gan=0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main.main(["use_gan=0", "max_steps=1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe.main([])
 
 
 def test_kernel_sources_present_and_built_for_sm90a():
@@ -117,8 +134,10 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 def test_port_package_layout_mirrors_jax_package():
     """Each ported module sits at the JAX package's path."""
-    for mod in ("config", "synthesis", "ops.align", "ops.gn_mish", "models.unet",
-                "models.diffusion", "models.text_encoder", "models.syncnet",
-                "models.facetts", "models.hifigan", "text.cmudict", "utils.audio"):
+    for mod in ("config", "synthesis", "ops.align", "ops.gn_mish", "ops.mas",
+                "ops.groupnorm", "models.unet", "models.diffusion", "models.text_encoder",
+                "models.syncnet", "models.facetts", "models.hifigan", "text.cmudict",
+                "utils.audio", "data.dataset", "train.state", "train.optim", "train.step",
+                "train.loop"):
         importlib.import_module(f"facegantts_tpu_torch.{mod}")
         assert os.path.exists(os.path.join(ROOT, "facegantts_tpu", *mod.split(".")) + ".py")

@@ -19,6 +19,7 @@ from flax import traverse_util
 
 from facegantts_tpu.train import checkpoint as ck
 from facegantts_tpu_torch import convert
+from torch_cpu import torch_threads_started  # noqa: F401
 
 ATOL = 1e-4
 
@@ -170,6 +171,35 @@ def test_syncnet_forward_vid_matches_jax(jax_syncnet):
         got = tm.forward_vid(_t(face)).numpy()
     assert got.shape == (2, 16)
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_syncnet_audio_stream_matches_jax(jax_syncnet):
+    """forward_aud (B, T', n_out) and the 8 forward_perceptual maps, NCHW in
+    the port and NHWC in JAX; BatchNorm stays on running statistics even
+    after train()."""
+    from facegantts_tpu_torch.models.syncnet import SyncNet
+
+    jm, params, stats = jax_syncnet
+    mel = np.random.default_rng(6).standard_normal((2, 128, 40)).astype(np.float32)
+    v = {"params": params, "batch_stats": stats}
+    want_aud = np.asarray(jax.jit(lambda v, m: jm.apply(v, m, method=jm.forward_aud))(
+        v, mel[..., None]))
+    want_maps = jax.jit(lambda v, m: jm.apply(v, m, method=jm.forward_perceptual))(
+        v, mel[..., None])
+    tm = SyncNet(n_out=16, width_mult=0.125).train()
+    assert not tm.training and not any(m.training for m in tm.modules())
+    tm.load_state_dict(convert.syncnet_state_dict(params, stats), strict=True)
+    with torch.no_grad():
+        got_aud = tm.forward_aud(_t(mel)[:, None]).numpy()
+        got_maps = tm.forward_perceptual(_t(mel)[:, None])
+    np.testing.assert_allclose(got_aud, want_aud, atol=ATOL)
+    assert len(got_maps) == len(want_maps) == 8
+    for i, (g, w) in enumerate(zip(got_maps, want_maps)):
+        g = g.numpy()
+        g = g.transpose(0, 2, 3, 1) if g.ndim == 4 else g.transpose(0, 2, 1)
+        np.testing.assert_allclose(g, np.asarray(w), atol=ATOL, err_msg=f"map {i}")
+    assert torch.equal(tm.netcnnaud[1].running_mean,
+                       convert.syncnet_state_dict(params, stats)["netcnnaud.1.running_mean"])
 
 
 def test_hifigan_matches_jax(jax_hifigan):
