@@ -18,33 +18,41 @@ non-zero and prints no result line):
    be finite and ``n_frames * hop`` long, and every kernel's launch count
    (zeroed just before, read just after) must show the path went through it:
    K1 launches 25 times per U-Net evaluation, 250 per utterance.
-3. every kernel against its plain torch version on the card, at the shapes
-   the main path gave it plus the Ty=436 bucket's shapes at batch 1 and 4,
-   in f32 (max abs error <= 1e-4) and bf16 (<= 0.05), TF32 off; median
+3. ``fused_gn_mish`` 0 against 1 in turns (0, 1, 1, 0): warm bf16 request
+   latency, and training step time and peak memory over 3 steps a turn,
+   run next to phase 2's requests, before the profiled phases.
+4. K1's forward kernel against its plain torch version on the card, at the
+   shapes the main path gave it plus the Ty=436 bucket's shapes at batch 1
+   and 4 and the Ty=872 bucket's at batch 1 (whose full-resolution slab
+   streams through shared memory in f32), in f32 (max abs error <= 1e-4)
+   and bf16 (<= 0.05), TF32 off, with the launch plan of each shape; median
    times of the kernel, the plain version and a library yardstick, and the
    bound (bytes over 3.35 TB/s vs operations over 67 TFLOP/s, H100 SXM).
-4. one f32 utterance decoded with the kernel (``fused_gn_mish=1``) and with
+5. one f32 utterance decoded with the kernel (``fused_gn_mish=1``) and with
    plain torch ops (``fused_gn_mish=0``), same weights, same injected noise,
    TF32 off: the mel difference is bounded.
-5. where one bf16 request's device time goes (``torch.profiler``).
-6. the training path: ``train/loop.train`` with the plain FaceTTS step
+6. where one bf16 request's device time goes (``torch.profiler``), and that
+   each K1 call is one device kernel, ``gn_mish_fwd_kernel``.
+7. the training path: ``train/loop.train`` with the plain FaceTTS step
    (``use_gan=0``) at the Config defaults (published widths),
    ``fused_gn_mish=1``, f32 with PyTorch's TF32 defaults, on
    ``SyntheticDataset`` (seed 0) at batch 64 (the reference recipe's 256
    over 4 GPUs), 5 steps and the validation pass.  Every loss and
    ``grad_norm`` is finite, the encoder moved, the frozen SyncNet audio trunk
-   is bit-identical, and with the counts zeroed just before: K1 launched 25
-   times and MAS once per loss evaluation.  Step times, peak memory, buckets,
-   and a ``torch.profiler`` breakdown of one warm step.
-7. K2's only consumer (``FusedGroupNorm``, forward and backward at the five
+   is bit-identical, and with the counts zeroed just before: K1's forward
+   launched 25 times and MAS once per loss evaluation, K1's backward 25
+   times per training step (validation runs no backward).  Step times, peak
+   memory, buckets, and a ``torch.profiler`` breakdown of one warm step.
+8. K2's only consumer (``FusedGroupNorm``, forward and backward at the five
    training U-Net shapes) and the probe entry point (P1, P2), each with its
    counts zeroed just before.
-8. MAS (exactly equal paths: on the first training step's own log-prior
+9. MAS (exactly equal paths: on the first training step's own log-prior
    and mask, at B=64 and every (text, mel) bucket the steps ran, and at the
-   top buckets T_x 256, T_y 656 and 872), K1's forward kernel plus its
-   recomputed backward (1e-4), K2 (sums to 1e-5 relative, GroupNorm to
-   1e-4) and P1, P2 (exactly equal) against their plain versions, with
-   times, bounds and library times.
+   top buckets T_x 256, T_y 656 and 872), K1's forward and backward kernels
+   at the five training shapes (against autograd of the plain chain and the
+   backward kernel against ``gn_mish_mask_bwd_ref``, 1e-4 of the largest),
+   K2 (sums to 1e-5 relative, GroupNorm to 1e-4) and P1, P2 (exactly equal)
+   against their plain versions, with times, bounds and library times.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -68,9 +76,18 @@ K1_PER_EVAL = 25  # K1 launches per parity U-Net evaluation
 # their launch counts (unet.py: 5 at full resolution, 8 at /2, 12 at /4)
 K1_EVAL_436 = [((1, 64, 128, 436), 5), ((1, 128, 64, 218), 4), ((1, 64, 64, 218), 4),
                ((1, 256, 32, 109), 8), ((1, 128, 32, 109), 4)]
+# the same at the top mel bucket, Ty=872: the full-resolution slab is 3.57 MB
+# in f32, more than a cluster's shared memory, so the forward streams
+K1_EVAL_872 = [((1, 64, 128, 872), 5), ((1, 128, 64, 436), 4), ((1, 64, 64, 436), 4),
+               ((1, 256, 32, 218), 8), ((1, 128, 32, 218), 4)]
 K1_OPS_PER_ELEM = 13  # stats 3 + normalise 2 + mish 7 (exp counted once) + mask 1
+# backward: normalise 2 + affine 2 + mish' 10 (exp once) + dz 1 + sums 3 + dx 3
+K1_BWD_OPS_PER_ELEM = 21
+K1_FWD_KERNEL, K1_BWD_KERNEL = "gn_mish_fwd_kernel", "gn_mish_bwd_kernel"  # csrc names
 PATH_KERNELS = ("gn_mish_mask",)  # wrapper names (kernels.LAUNCHES keys) on the path
-TRAIN_PATH_KERNELS = ("gn_mish_mask", "maximum_path")
+TRAIN_PATH_KERNELS = ("gn_mish_mask", "gn_mish_mask_bwd", "maximum_path")
+AB_ORDER = (0, 1, 1, 0)  # fused_gn_mish in turns
+AB_REQUESTS, AB_STEPS = 3, 3  # per turn: warm bf16 requests, training steps
 SM_CLOCK_HZ = 1.98e9  # H100 SXM maximum SM clock
 DEP_STEP_CYCLES = 8  # one dependent f32 add and max: ~4 cycles each
 TRAIN_STEPS = 5
@@ -110,8 +127,8 @@ def time_ms(fn, iters=50, reps=7):
 
 def device_profile(fn, n=1):
     """Run ``fn`` ``n`` times under torch.profiler; returns
-    ({kernel name: device us per run}, wall us per run).  Empty when the
-    profiler sees no device activity."""
+    ({kernel name: device us per run}, wall us per run, {kernel name:
+    launches per run}).  Empty when the profiler sees no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -123,11 +140,17 @@ def device_profile(fn, n=1):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e6 / n
-    per = collections.Counter()
+    per, count = collections.Counter(), collections.Counter()
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0:
             per[e.key] += e.self_device_time_total / n
-    return per, wall
+            count[e.key] += e.count / n
+    return per, wall, count
+
+
+def kernel_sum(table, name):
+    """Sum of ``table``'s values over the kernels whose name holds ``name``."""
+    return sum(v for k, v in table.items() if name in k)
 
 
 class strict_f32:
@@ -149,7 +172,7 @@ def k1_bound(shape, dtype_bytes):
     """(least ms, "bytes" or "operations") for one K1 call at ``shape``."""
     b, c, f, t = shape
     n = b * c * f * t
-    moved = 2 * n * dtype_bytes + 2 * c * 4 + b * 4  # x, y, scale, bias, lens
+    moved = 2 * n * dtype_bytes + 2 * c * 4 + b * 4 + b * 8 * 8  # x, y, scale, bias, lens, stats
     by_bytes, by_ops = moved / HBM_BYTES_PER_S, n * K1_OPS_PER_ELEM / F32_FLOPS_PER_S
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
@@ -267,11 +290,14 @@ def train_phase(work_dir):
     if not vals:
         raise AssertionError("[train] the validation pass ran no batch")
     forwards = TRAIN_STEPS + sum(int(r["val/batches"]) for r in vals)
-    want = {gn_mish.NAME: K1_PER_EVAL * forwards * cfg.fused_gn_mish, mas.NAME: forwards}
+    # validation runs no backward
+    want = {gn_mish.NAME: K1_PER_EVAL * forwards * cfg.fused_gn_mish,
+            gn_mish.BWD_NAME: K1_PER_EVAL * TRAIN_STEPS * cfg.fused_gn_mish, mas.NAME: forwards}
     for k, n in want.items():
         if launches.get(k, 0) != n:
             raise AssertionError(f"[train] {k} launched {launches.get(k, 0)} times, "
-                                 f"want {n} ({forwards} loss evaluations)")
+                                 f"want {n} ({forwards} loss evaluations, {TRAIN_STEPS} "
+                                 f"backward passes)")
     final = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
     if all(torch.equal(final[n], p) for n, p in init.items() if n.startswith("encoder.")):
         raise AssertionError("[train] no encoder parameter moved")
@@ -308,10 +334,10 @@ def train_profile(cfg, state, n=2):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     for _ in range(3):  # the profiler now and then returns no device events
-        per, _ = device_profile(one, n=n)
+        per, _, count = device_profile(one, n=n)
         if per:
             break
-    return per, wall, (batch.x.shape[1], batch.y.shape[2])
+    return per, wall, (batch.x.shape[1], batch.y.shape[2]), count
 
 
 def mas_inputs(shape, gen):
@@ -363,17 +389,26 @@ def mas_check(value, mask):
 
 
 def k1_backward_check(shape, gen):
-    """K1's forward kernel plus its recomputed backward against autograd of
-    the plain chain, one upstream gradient for both."""
+    """K1's forward and backward kernels (through the autograd Function)
+    against autograd of the plain chain, and the backward kernel alone
+    against its plain version ``gn_mish_mask_bwd_ref``, one upstream
+    gradient for all.  The affine spreads z past both sides of Mish's clamp
+    at 20.  Bar: 1e-4 of the largest value (f32 sums in another order)."""
     import torch
     import torch.nn.functional as F
 
-    from facegantts_tpu_torch.ops.gn_mish import gn_mish_mask, gn_mish_mask_ref
+    from facegantts_tpu_torch.ops.gn_mish import (
+        gn_mish_mask,
+        gn_mish_mask_bwd,
+        gn_mish_mask_bwd_ref,
+        gn_mish_mask_ref,
+        group_stats,
+    )
 
     b, c, f, t = shape
     x = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
-    scale = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1
-    bias = torch.randn(c, generator=gen, device="cuda")
+    scale = torch.randn(c, generator=gen, device="cuda") * 6
+    bias = torch.randn(c, generator=gen, device="cuda") * 8
     lens = torch.tensor([(t - 3, t, t // 2, 1)[i % 4] for i in range(b)], dtype=torch.int32,
                         device="cuda")
     w = torch.randn(shape, generator=gen, device="cuda")
@@ -388,24 +423,86 @@ def k1_backward_check(shape, gen):
     def library(*args):
         return F.mish(F.group_norm(args[0], 8, args[1], args[2], 1e-5)) * mask
 
+    def rel(got, want):
+        return max((g - v).abs().max().item() / max(1.0, v.abs().max().item())
+                   for g, v in zip(got, want))
+
     got, want = run(gn_mish_mask), run(gn_mish_mask_ref)
+    stats = group_stats(x)
+    kern, plain = gn_mish_mask_bwd(w, x, scale, bias, lens, stats), gn_mish_mask_bwd_ref(
+        w, x, scale, bias, lens, stats)
     torch.cuda.synchronize()
     err_y = (got[0] - want[0]).abs().max().item()
-    err_g = max((g - v).abs().max().item() / max(1.0, v.abs().max().item())
-                for g, v in zip(got[1:], want[1:]))
-    if not (err_y <= 1e-4 and err_g <= 1e-4):
-        raise AssertionError(f"[K1 bwd] {shape}: forward err {err_y:.3e}, gradient err "
-                             f"{err_g:.3e} (bar 1e-4)")
+    err_g, err_plain = rel(got[1:], want[1:]), rel(kern, plain)
+    if not (err_y <= 1e-4 and err_g <= 1e-4 and err_plain <= 1e-4):
+        raise AssertionError(f"[K1 bwd] {shape}: forward err {err_y:.3e}, gradients vs autograd "
+                             f"{err_g:.3e}, backward kernel vs plain {err_plain:.3e} (bar 1e-4)")
     n = b * c * f * t
     # forward: x in, y out; backward: x and the gradient in, dx out
-    bound_ms, bound_by = bound(5 * n * 4, n_ops=3 * n * K1_OPS_PER_ELEM)
+    bound_ms, bound_by = bound(5 * n * 4, n_ops=n * (K1_OPS_PER_ELEM + K1_BWD_OPS_PER_ELEM))
+    # the backward alone: x, g, scale, bias, lens, stats in; dx, (B, C, 2) out
+    bwd_bound = bound(3 * n * 4 + 2 * c * 4 + b * 4 + b * 8 * 8 + b * c * 8,
+                      n_ops=n * K1_BWD_OPS_PER_ELEM)
     return {
-        "err": err_y, "grad_err": err_g,
+        "err": err_y, "grad_err": err_g, "bwd_err": err_plain,
+        "bwd_abs_err": max((g - v).abs().max().item() for g, v in zip(kern, plain)),
         "ms": time_ms(lambda: run(gn_mish_mask), iters=5, reps=3),
         "plain_ms": time_ms(lambda: run(gn_mish_mask_ref), iters=5, reps=3),
         "library_ms": time_ms(lambda: run(library), iters=5, reps=3),
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "bwd": {"ms": time_ms(lambda: gn_mish_mask_bwd(w, x, scale, bias, lens, stats), iters=20,
+                              reps=5),
+                "plain_ms": time_ms(lambda: gn_mish_mask_bwd_ref(w, x, scale, bias, lens, stats),
+                                    iters=5, reps=3),
+                "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},
     }
+
+
+def ab_phase(texts, face, cmu, fused_synth):
+    """``fused_gn_mish`` 0 against 1 in turns (AB_ORDER), in one process on
+    one card: warm bf16 request latency (AB_REQUESTS requests of the first
+    test sentence, duration cache warm) and training step time and peak
+    memory (AB_STEPS steps of a fresh state at the smoke's recipe on the same
+    batches).  Returns {setting: {"req_ms", "step_ms" (per turn), "peak"}}."""
+    import torch
+
+    from facegantts_tpu_torch.config import default_config
+    from facegantts_tpu_torch.data.dataset import BucketedLoader, SyntheticDataset
+    from facegantts_tpu_torch.synthesis import Synthesizer
+    from facegantts_tpu_torch.train.step import init_state, make_plain_train_step
+
+    plain_cfg = fused_synth.cfg.replace(fused_gn_mish=0)
+    synths = {1: fused_synth, 0: Synthesizer(plain_cfg, cmudict=cmu, seed=0, device="cuda")}
+    synths[0].synthesize(texts[0], face)  # cuDNN set-up and the duration cache
+    ds = SyntheticDataset(n_items=1024, n_mels=plain_cfg.n_mels, seed=0)
+    out = {s: {"req_ms": [], "step_ms": [], "peak": []} for s in (0, 1)}
+    for fused in AB_ORDER:
+        for _ in range(AB_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            synths[fused].synthesize(texts[0], face)
+            out[fused]["req_ms"].append((time.perf_counter() - t0) * 1e3)
+        cfg = default_config(env={}, overrides=dict(TRAIN_OVERRIDES, fused_gn_mish=fused))
+        state = init_state(cfg, "cuda")
+        step, _ = make_plain_train_step(cfg, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batches = BucketedLoader(ds, cfg, cfg.per_gpu_batchsize).epoch(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(AB_STEPS):
+            batch = next(batches)
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch, gen)
+            loss = float(metrics["total_loss"])  # synchronises
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not math.isfinite(loss):
+                raise AssertionError(f"[A/B] fused_gn_mish={fused}: non-finite loss")
+        out[fused]["step_ms"].append(times)
+        out[fused]["peak"].append(torch.cuda.max_memory_allocated())
+        del state, step
+        torch.cuda.empty_cache()
+    return out
 
 
 def k2_check(shape, gen):
@@ -576,12 +673,31 @@ def main() -> int:
         if not path_launches[kernel]:
             raise AssertionError(f"kernel {kernel} never launched on the main path")
 
-    # ---- 3. kernels against their plain versions -----------------------------
+    # ---- 3. fused_gn_mish 0 against 1, in turns --------------------------------
+    ab = ab_phase(texts, face, cmu, synths[1])
+    for fused in (0, 1):
+        r = ab[fused]
+        warm_steps = [ms for turn in r["step_ms"] for ms in turn[1:]]
+        log(f"[A/B] fused_gn_mish={fused}: warm bf16 request median "
+            f"{statistics.median(r['req_ms']):.1f} ms (all {[round(v, 1) for v in r['req_ms']]}); "
+            f"training step median {statistics.median(warm_steps):.1f} ms over steps 2-{AB_STEPS} "
+            f"of each turn (all {[[round(v, 1) for v in t] for t in r['step_ms']]}); peak memory "
+            f"{[round(p / 2**30, 2) for p in r['peak']]} GiB")
+
+    # ---- 4. K1 against its plain version ---------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
     eval_shapes = {s for s, _ in K1_EVAL_436}
     shapes = set(eval_shapes)
     shapes |= {(4, *s[1:]) for s, _ in K1_EVAL_436}
+    shapes |= {s for s, _ in K1_EVAL_872}
     shapes |= {s for s, _ in seen}
+    for shape in sorted(shapes):  # the launch plan each shape gets (cluster, rows, tiles)
+        for dtype in (torch.float32, torch.bfloat16):
+            p = gn_mish._plan(torch.empty(shape, dtype=dtype, device="cuda"), 8, False)
+            log(f"[K1 plan] {shape} {str(dtype)[6:]}: {8 * shape[0]} clusters of {p.cluster}, "
+                f"{p.rpb} rows a block in tiles of {p.rpt} ({-(-p.rpb // p.rpt)} tile(s)), "
+                f"{p.smem} B shared, bulk copies {bool(p.vec)}; the card holds {p.active} such "
+                f"clusters at once")
     results = {}
     with strict_f32():
         for dtype in (torch.float32, torch.bfloat16):
@@ -596,21 +712,22 @@ def main() -> int:
                     f"kernel {r['ms'] * 1e3:.1f} us plain {r['plain_ms'] * 1e3:.1f} us "
                     f"library {r['library_ms'] * 1e3:.1f} us bound {r['bound_ms'] * 1e3:.2f} us{dev}")
     per_eval = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        tot = {k: sum(results[(s, dtype)][k] * n for s, n in K1_EVAL_436)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        per_eval[dtype] = tot
-        dev = {}
-        for k in ("dev_us", "plain_dev_us", "library_dev_us"):
-            vals = [(results[(s, dtype)][k], n) for s, n in K1_EVAL_436]
-            dev[k] = None if any(v is None for v, _ in vals) else sum(v * n for v, n in vals)
-        log(f"[K1] one U-Net eval at Ty=436, B=1, {str(dtype)[6:]} ({K1_PER_EVAL} launches): "
-            f"kernel {tot['ms'] * 1e3:.1f} us plain {tot['plain_ms'] * 1e3:.1f} us "
-            f"library {tot['library_ms'] * 1e3:.1f} us bound {tot['bound_ms'] * 1e3:.1f} us | "
-            f"device only: kernel {fmt_us(dev['dev_us'])} plain {fmt_us(dev['plain_dev_us'])} "
-            f"library {fmt_us(dev['library_dev_us'])}")
+    for ty, eval_shapes_n in ((436, K1_EVAL_436), (872, K1_EVAL_872)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tot = {k: sum(results[(s, dtype)][k] * n for s, n in eval_shapes_n)
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            per_eval[(ty, dtype)] = tot
+            dev = {}
+            for k in ("dev_us", "plain_dev_us", "library_dev_us"):
+                vals = [(results[(s, dtype)].get(k), n) for s, n in eval_shapes_n]
+                dev[k] = None if any(v is None for v, _ in vals) else sum(v * n for v, n in vals)
+            log(f"[K1] one U-Net eval at Ty={ty}, B=1, {str(dtype)[6:]} ({K1_PER_EVAL} launches): "
+                f"kernel {tot['ms'] * 1e3:.1f} us plain {tot['plain_ms'] * 1e3:.1f} us "
+                f"library {tot['library_ms'] * 1e3:.1f} us bound {tot['bound_ms'] * 1e3:.1f} us | "
+                f"device only: kernel {fmt_us(dev['dev_us'])} plain {fmt_us(dev['plain_dev_us'])} "
+                f"library {fmt_us(dev['library_dev_us'])}")
 
-    # ---- 4. kernel vs plain chain through the whole decoder -----------------
+    # ---- 5. kernel vs plain chain through the whole decoder -----------------
     synth = synths[0]
     cfg = synth.cfg
     plain = FaceTTS.from_config(cfg.replace(fused_gn_mish=0)).eval().cuda()
@@ -639,26 +756,36 @@ def main() -> int:
     if not (d.max().item() < tol_max and d.mean().item() < tol_mean):
         raise AssertionError("[decoder] kernel and plain chain disagree")
 
-    # ---- 5. where one request's time goes (bf16, duration cache warm) ---------
+    # ---- 6. where one request's time goes (bf16, duration cache warm) ---------
     synth = synths[1]
     for _ in range(3):  # the profiler now and then returns no device events
-        per, wall = device_profile(lambda: synth.synthesize(texts[0], face), n=3)
+        kernels.LAUNCHES.clear()
+        per, wall, count = device_profile(lambda: synth.synthesize(texts[0], face), n=3)
+        calls = kernels.LAUNCHES[gn_mish.NAME] / 4  # the warm-up call and 3 profiled runs
         busy = sum(per.values())
         if busy:
             break
     if busy == 0:
         log("[profile] the profiler saw no device time: not measured")
     else:
-        k1 = sum(v for k, v in per.items() if "gn_stats_kernel" in k or "gn_apply_kernel" in k)
+        k1 = kernel_sum(per, K1_FWD_KERNEL)
+        k1_kernels = {k: n for k, n in count.items()
+                      if any(s in k for s in ("gn_mish", "gn_stats", "gn_apply"))}
         plain_wall = latency[("bf16", 2)] * 1e3  # same request, unprofiled
         log(f"[profile] bf16 request (text 0, cached): device busy {busy / 1e3:.1f} ms of "
             f"{plain_wall / 1e3:.1f} ms unprofiled wall ({100 * busy / plain_wall:.1f}% busy, "
             f"{100 - 100 * busy / plain_wall:.1f}% idle; {wall / 1e3:.1f} ms under the profiler); "
             f"K1 {k1 / 1e3:.2f} ms ({100 * k1 / busy:.1f}% of device time)")
+        log(f"[profile] K1: {calls:.0f} wrapper calls a request; its device kernels a "
+            f"request: {k1_kernels}")
+        # one launch per K1 call: the forward kernel and nothing else
+        if set(k1_kernels) != {k for k in k1_kernels if K1_FWD_KERNEL in k} or \
+                kernel_sum(count, K1_FWD_KERNEL) != calls:
+            raise AssertionError(f"[profile] K1 calls {calls} but device kernels {k1_kernels}")
         for k, v in per.most_common(10):
             log(f"[profile]   {v / 1e3:8.3f} ms  {k[:110]}")
 
-    # ---- 6. the training path at full width ----------------------------------
+    # ---- 7. the training path at full width ----------------------------------
     tr = train_phase(os.path.join(ROOT, "runs", "chip_smoke_train"))
     cfg_t = tr["cfg"]
     for r, ms in zip(tr["steps"], tr["step_ms"]):
@@ -680,21 +807,23 @@ def main() -> int:
     for kernel in TRAIN_PATH_KERNELS:
         if not tr["launches"].get(kernel):
             raise AssertionError(f"kernel {kernel} never launched on the training path")
-    per, wall, shape = train_profile(cfg_t, tr["state"])
+    per, wall, shape, count = train_profile(cfg_t, tr["state"])
     busy = sum(per.values())
     if busy == 0:
         log("[train profile] the profiler saw no device time: not measured")
     else:
-        k1 = sum(v for k, v in per.items() if "gn_stats_kernel" in k or "gn_apply_kernel" in k)
-        mas_us = sum(v for k, v in per.items() if "mas_kernel" in k)
+        k1, k1_bwd = kernel_sum(per, K1_FWD_KERNEL), kernel_sum(per, K1_BWD_KERNEL)
+        mas_us = kernel_sum(per, "mas_kernel")
         log(f"[train profile] one warm step, (text, mel) bucket {shape}: device busy "
             f"{busy / 1e3:.1f} ms of {wall:.1f} ms unprofiled wall ({100 * busy / 1e3 / wall:.1f}% "
-            f"busy); K1 forward {k1 / 1e3:.2f} ms, MAS {mas_us / 1e3:.3f} ms")
+            f"busy); K1 forward {k1 / 1e3:.2f} ms ({kernel_sum(count, K1_FWD_KERNEL):.0f} "
+            f"launches), K1 backward {k1_bwd / 1e3:.2f} ms ({kernel_sum(count, K1_BWD_KERNEL):.0f} "
+            f"launches), MAS {mas_us / 1e3:.3f} ms")
         for k, v in per.most_common(12):
             log(f"[train profile]   {v / 1e3:8.3f} ms  {k[:110]}")
     del tr["state"]
 
-    # ---- 7. FusedGroupNorm (K2's only consumer) and the probe (P1, P2) ---------
+    # ---- 8. FusedGroupNorm (K2's only consumer) and the probe (P1, P2) ---------
     from facegantts_tpu_torch import probe
     from facegantts_tpu_torch.models.unet import FusedGroupNorm
     from facegantts_tpu_torch.ops import groupnorm as gnorm
@@ -722,7 +851,7 @@ def main() -> int:
     if not (probe_launches.get(probe.P1_NAME) and probe_launches.get(probe.P2_NAME)):
         raise AssertionError(f"[probe] launches {probe_launches}")
 
-    # ---- 8. the new kernels against their plain versions ---------------------
+    # ---- 9. the kernels against their plain versions ----------------------------
     checks = {}
     # the first training step's own inputs, then ragged random ones at every
     # (text, mel) bucket the steps ran (T_x sets the threads per block) and
@@ -739,10 +868,13 @@ def main() -> int:
         del mas_cases
         for shape, _ in K1_TRAIN:
             r = checks[("k1_bwd", shape)] = k1_backward_check(shape, gen)
-            log(f"[K1 bwd] {shape} f32: forward max_abs_err {r['err']:.3e}, gradients "
-                f"{r['grad_err']:.3e} of the largest (bar 1e-4); forward + backward: kernel "
+            log(f"[K1 bwd] {shape} f32: forward max_abs_err {r['err']:.3e}, gradients vs "
+                f"autograd {r['grad_err']:.3e} and backward kernel vs gn_mish_mask_bwd_ref "
+                f"{r['bwd_err']:.3e} of the largest (bar 1e-4); forward + backward: kernel "
                 f"{r['ms'] * 1e3:.1f} us plain {r['plain_ms'] * 1e3:.1f} us library "
-                f"{r['library_ms'] * 1e3:.1f} us bound {r['bound_ms'] * 1e3:.2f} us")
+                f"{r['library_ms'] * 1e3:.1f} us bound {r['bound_ms'] * 1e3:.2f} us; backward "
+                f"alone: kernel {r['bwd']['ms'] * 1e3:.1f} us plain "
+                f"{r['bwd']['plain_ms'] * 1e3:.1f} us bound {r['bwd']['bound_ms'] * 1e3:.2f} us")
         for shape, _ in K1_TRAIN:
             r = checks[("k2", shape)] = k2_check(shape, gen)
             log(f"[K2] {shape} f32: sums max_abs_err {r['err']:.3e} (relative {r['rel_err']:.2e}, "
@@ -757,12 +889,16 @@ def main() -> int:
                 f"({r['bound_by']})")
     bwd = {k: sum(checks[("k1_bwd", s)][k] * n for s, n in K1_TRAIN)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    bwd_only = {k: sum(checks[("k1_bwd", s)]["bwd"][k] * n for s, n in K1_TRAIN)
+                for k in ("ms", "plain_ms", "bound_ms")}
     log(f"[K1 bwd] one training U-Net evaluation ({K1_PER_EVAL} launches, B=64, 128 frames), "
         f"forward + backward: kernel {bwd['ms']:.3f} ms plain {bwd['plain_ms']:.3f} ms "
-        f"library {bwd['library_ms']:.3f} ms bound {bwd['bound_ms']:.3f} ms")
+        f"library {bwd['library_ms']:.3f} ms bound {bwd['bound_ms']:.3f} ms; backward kernel "
+        f"alone {bwd_only['ms']:.3f} ms plain {bwd_only['plain_ms']:.3f} ms bound "
+        f"{bwd_only['bound_ms']:.3f} ms (device time in a real step: phase 7's profile)")
 
     # ---- lines -----------------------------------------------------------------
-    f32 = per_eval[torch.float32]
+    f32 = per_eval[(436, torch.float32)]
     k1_err = max(r["err"] for (s, dt), r in results.items() if dt == torch.float32)
     mas_big = checks[("mas", "ragged random", MAS_SHAPES[-1])]
     k2 = {k: sum(checks[("k2", s)][k] for s, _ in K1_TRAIN)
@@ -770,7 +906,9 @@ def main() -> int:
     log(f"[lines] kernels line: {gn_mish.NAME} times are one U-Net evaluation's {K1_PER_EVAL} "
         f"K1 launches at Ty=436, B=1, f32 (per-shape lines above), max_abs_err over every f32 "
         f"shape, launches on the inference ({path_launches[gn_mish.NAME]}) and training "
-        f"({tr['launches'][gn_mish.NAME]}) paths; {mas_mod.NAME} at {MAS_SHAPES[-1]}, "
+        f"({tr['launches'][gn_mish.NAME]}) paths; {gn_mish.BWD_NAME} times are one training "
+        f"evaluation's {K1_PER_EVAL} backward launches (B=64), max_abs_err against "
+        f"gn_mish_mask_bwd_ref, launches on the training path; {mas_mod.NAME} at {MAS_SHAPES[-1]}, "
         f"launches on the training path; {gnorm.NAME} summed over the {len(K1_TRAIN)} "
         f"training U-Net shapes, launches in the FusedGroupNorm run; probes at their shapes, "
         f"launches in the probe run")
@@ -787,6 +925,11 @@ def main() -> int:
         entry(gn_mish.NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:119",
               path_launches[gn_mish.NAME] + tr["launches"][gn_mish.NAME],
               dict(f32, bound_by=k1_by), k1_err),
+        entry(gn_mish.BWD_NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:262",
+              tr["launches"][gn_mish.BWD_NAME], dict(bwd_only, library_ms=None, bound_by=(
+                  collections.Counter(checks[("k1_bwd", s)]["bwd"]["bound_by"]
+                                      for s, _ in K1_TRAIN).most_common(1)[0][0])),
+              max(checks[("k1_bwd", s)]["bwd_abs_err"] for s, _ in K1_TRAIN)),
         entry(mas_mod.NAME, "csrc/mas.cu", "facegantts_tpu/ops/mas.py:38",
               tr["launches"][mas_mod.NAME], mas_big, 0.0),
         entry(gnorm.NAME, "csrc/groupnorm.cu", "facegantts_tpu/ops/groupnorm.py:72",

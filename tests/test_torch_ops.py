@@ -1,7 +1,9 @@
 """PyTorch port ops against the JAX package: kernel K1's plain version
 (``gn_mish_mask_ref``) against ``_xla_chain`` and the Pallas kernel in
-interpret mode, its gradient against the JAX ``custom_vjp``, the K1 wrapper's
-CPU route and its checks; K2's GroupNorm (statistics, output and gradient)
+interpret mode, its closed-form backward (``gn_mish_mask_bwd_ref``, the
+backward kernel's plain version) against ``jax.vjp`` of ``_xla_chain``, its
+gradient through the wrapper against the JAX ``custom_vjp``, the K1
+wrapper's CPU route, its checks and its launch plan; K2's GroupNorm (statistics, output and gradient)
 against the JAX Pallas path and ``_xla_group_norm``; the probes P1 and P2
 against a numpy transcription of the Pallas bodies; and ``ops/align`` held
 to exact equality.  MAS against JAX is in ``tests/test_torch_train.py``.
@@ -117,15 +119,21 @@ def test_gn_mish_cuda_kernel_matches_plain(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch_dtype = getattr(torch, dtype)
-    for shape in [(2, 8, 26, 64), (1, 4, 16, 128), (2, 4, 10, 256), (3, 6, 20, 32)]:
+    # (2, 3, 5, 24): slabs of 45 elements, not 16-byte aligned: plain copies
+    for shape in [(2, 8, 26, 64), (1, 4, 16, 128), (2, 4, 10, 256), (3, 6, 20, 32),
+                  (2, 3, 5, 24)]:
         x, scale, bias, lens = _gn_inputs(shape, seed=1)
         xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).to("cuda", torch_dtype)
+        # the same values in a view at an odd offset: plain copies as well
+        shifted = torch.empty(xt.numel() + 1, dtype=torch_dtype, device="cuda")[1:]
+        shifted = shifted.view(xt.shape).copy_(xt)
         args = [torch.from_numpy(a).cuda() for a in (scale, bias, lens)]
-        got = tgn.gn_mish_mask(xt, *args).float()
         want = tgn.gn_mish_mask_ref(xt, *args).float()
-        torch.cuda.synchronize()
         atol = 1e-4 if dtype == "float32" else 0.05
-        assert (got - want).abs().max().item() <= atol
+        for v in (xt, shifted):
+            got = tgn.gn_mish_mask(v, *args).float()
+            torch.cuda.synchronize()
+            assert (got - want).abs().max().item() <= atol
 
 
 @pytest.mark.gpu
@@ -150,10 +158,12 @@ def test_gn_mish_cuda_wrapper_refuses_bad_inputs():
     with torch.no_grad():
         tgn.gn_mish_mask(x, scale, bias, lens)
     assert kernels.LAUNCHES[tgn.NAME] == before + 1
-    # an input that needs a gradient launches the kernel too (its backward
-    # recomputes the plain chain); the backward launches nothing
+    # an input that needs a gradient launches the forward kernel too, and
+    # its backward launches the backward kernel once
+    bwd_before = kernels.LAUNCHES[tgn.BWD_NAME]
     tgn.gn_mish_mask(x.requires_grad_(), scale, bias, lens).sum().backward()
     assert kernels.LAUNCHES[tgn.NAME] == before + 2 and x.grad is not None
+    assert kernels.LAUNCHES[tgn.BWD_NAME] == bwd_before + 1
 
 
 def _k1_grads(fn, x, scale, bias, lens):
@@ -184,24 +194,169 @@ def test_gn_mish_grad_matches_jax():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5)
 
 
+def _bwd_inputs(shape, seed):
+    """NHWC inputs whose affine pushes z = xn * scale + bias past +20 and
+    below -20 (both sides of Mish's clamp), and an upstream gradient."""
+    x, _, _, lens = _gn_inputs(shape, seed)
+    rng = np.random.default_rng(seed + 1)
+    c = shape[-1]
+    scale = (rng.standard_normal(c) * 8).astype(np.float32)
+    bias = (rng.standard_normal(c) * 12).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    return x, scale, bias, lens, g
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 26, 64), (1, 4, 16, 128), (2, 4, 10, 256),
+                                   (3, 6, 20, 32)])
+def test_gn_mish_bwd_ref_matches_jax_vjp(shape):
+    """The closed-form backward (the backward kernel's plain version)
+    against jax.vjp of _xla_chain, the JAX custom_vjp backward, including
+    the masked tail, where dx is not zero.  Tolerance 2e-5 of the largest
+    value: f32 sums in another order."""
+    import jax
+    import jax.numpy as jnp
+
+    from facegantts_tpu.ops.gn_mish import _xla_chain
+
+    x, scale, bias, lens, g = _bwd_inputs(shape, seed=sum(shape))
+    _, vjp = jax.vjp(lambda a, s, b: _xla_chain(a, s, b, jnp.asarray(lens), 8, 1e-5),
+                     jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(g))]
+
+    def nchw(a):
+        return torch.from_numpy(a.transpose(0, 3, 1, 2).copy())
+
+    xt, st, bt, lt = nchw(x), torch.from_numpy(scale), torch.from_numpy(bias), torch.from_numpy(lens)
+    stats = tgn.group_stats(xt, 8, 1e-5)
+    z = tgn._normalized(xt, stats, 8) * st[None, :, None, None] + bt[None, :, None, None]
+    assert (z > 20).any() and (z < -20).any()
+    dx, dscale, dbias = tgn.gn_mish_mask_bwd_ref(nchw(g), xt, st, bt, lt, stats, 8)
+    got = [dx.numpy().transpose(0, 2, 3, 1), dscale.numpy(), dbias.numpy()]
+    for name, a, w in zip(("dx", "dscale", "dbias"), got, want):
+        np.testing.assert_allclose(a, w, rtol=0, atol=2e-5 * np.abs(w).max(), err_msg=name)
+    for i, n in enumerate(lens):  # the masked tail: statistics cover it
+        tail_got, tail_want = got[0][i, :, n:], want[0][i, :, n:]
+        if tail_want.size:
+            assert np.abs(tail_want).max() > 0
+            np.testing.assert_allclose(tail_got, tail_want, rtol=0,
+                                       atol=2e-5 * np.abs(want[0]).max())
+
+
+def test_gn_mish_cpu_grad_goes_through_function():
+    """On the CPU a gradient goes through the same autograd Function as on
+    the card, with the plain forward and the closed-form backward."""
+    x, scale, bias, lens, g = _bwd_inputs((2, 4, 12, 64), seed=21)
+    xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).requires_grad_()
+    args = (torch.from_numpy(scale), torch.from_numpy(bias), torch.from_numpy(lens))
+    y = tgn.gn_mish_mask(xt, *args)
+    assert type(y.grad_fn).__name__ == "_GnMishMaskBackward"
+    assert torch.equal(y.detach(), tgn.gn_mish_mask_ref(xt.detach(), *args))
+    gt = torch.from_numpy(g.transpose(0, 3, 1, 2).copy())
+    y.backward(gt)
+    plain = tgn.gn_mish_mask_bwd_ref(gt, xt.detach(), *args, tgn.group_stats(xt.detach()))
+    assert torch.equal(xt.grad, plain[0])
+    ref = xt.detach().clone().requires_grad_()
+    tgn.gn_mish_mask_ref(ref, *args).backward(gt)
+    # closed form vs autograd of the plain chain: f32 sums in another order
+    torch.testing.assert_close(xt.grad, ref.grad, rtol=0,
+                               atol=2e-5 * ref.grad.abs().max().item())
+
+
+class _EveryClusterFits:
+    """Stands in for the kernel library's occupancy query: every cluster fits."""
+
+    @staticmethod
+    def fgt_gn_mish_max_clusters(kind, cluster, smem, out):
+        out._obj.value = 1
+        return 0
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("shape", [(1, 64, 128, 436), (1, 64, 128, 872), (1, 256, 32, 109),
+                                   (64, 64, 128, 128), (64, 128, 32, 32), (2, 64, 8, 26),
+                                   (2, 24, 3, 5)])
+def test_gn_mish_launch_plan(shape, elem, bwd):
+    """The launch plan the CUDA wrapper computes on the host: the cluster's
+    blocks cover the slab's rows (the last ones may get none, which the
+    kernels allow), shared memory stays within the limit, and
+    bulk copies are chosen only where every block's and tile's first row is
+    16-byte aligned; the ints passed to the kernel are the plan's."""
+    b, c, f, t = shape
+    plan = tgn._make_plan(_EveryClusterFits, shape, 8, elem, bwd, 132)
+    rows = c // 8 * f
+    assert 1 <= plan.cluster <= 16 and plan.cluster * plan.rpb >= rows
+    assert 1 <= plan.rpt <= plan.rpb and plan.smem <= tgn._MAX_SMEM
+    if plan.vec:
+        assert t * elem >= 16
+        assert all(n * t * elem % 16 == 0 for n in (rows, plan.rpb, plan.rpt))
+    assert list(plan.args) == [elem == 2, plan.vec, b, 8, c // 8, f, t, plan.cluster, plan.rpb,
+                               plan.rpt, plan.smem]
+    if shape == (1, 64, 128, 872):  # 3.57 MB f32 slabs stream through a 16-block cluster
+        assert plan.cluster == 16 and (plan.rpt < plan.rpb) == (elem == 4 or bwd)
+
+
+def _bwd_check(shape, dtype, seed):
+    """Backward kernel vs gn_mish_mask_bwd_ref and vs autograd of
+    gn_mish_mask_ref on the card; returns the launches it made."""
+    x, scale, bias, lens, g = _bwd_inputs(shape, seed)
+    xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).to("cuda", dtype)
+    gt = torch.from_numpy(g.transpose(0, 3, 1, 2).copy()).to("cuda", dtype)
+    st, bt, lt = (torch.from_numpy(a).cuda() for a in (scale, bias, lens))
+    before = kernels.LAUNCHES[tgn.BWD_NAME]
+    args = [v.clone().requires_grad_() for v in (xt, st, bt)]
+    tgn.gn_mish_mask(*args, lt).backward(gt)
+    got = [v.grad.float() for v in args]
+    launches = kernels.LAUNCHES[tgn.BWD_NAME] - before
+    stats = tgn.group_stats(xt)
+    plain = [v.float() for v in tgn.gn_mish_mask_bwd_ref(gt, xt, st, bt, lt, stats)]
+    ref_args = [v.clone().requires_grad_() for v in (xt, st, bt)]
+    tgn.gn_mish_mask_ref(*ref_args, lt).backward(gt)
+    auto = [v.grad.float() for v in ref_args]
+    torch.cuda.synchronize()
+    for a, w, p in zip(got, auto, plain):
+        top = max(1.0, w.abs().max().item())
+        if dtype == torch.float32:  # f32 sums in another order
+            assert (a - p).abs().max().item() <= 1e-4 * top
+            assert (a - w).abs().max().item() <= 1e-4 * top
+        else:  # dx rounded to bf16 once: 2^-8 of the largest, and the sums
+            assert (a - p).abs().max().item() <= 1e-2 * top
+    return launches
+
+
 @pytest.mark.gpu
-def test_gn_mish_cuda_backward_matches_plain():
-    """K1's forward kernel plus the recomputed backward on the card against
-    autograd of the plain chain (f32 sums in another order: 1e-4)."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gn_mish_cuda_backward_matches_plain(dtype):
+    """K1's backward kernel on the card against its plain version
+    (gn_mish_mask_bwd_ref) and against autograd of the plain chain, with z
+    past both sides of Mish's clamp; one backward launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    for shape in [(2, 8, 26, 64), (1, 4, 16, 128), (3, 6, 20, 32)]:
-        x, scale, bias, lens = _gn_inputs(shape, seed=2)
-        args = [torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).cuda(),
-                *(torch.from_numpy(a).cuda() for a in (scale, bias)),
-                torch.from_numpy(lens).cuda()]
-        before = kernels.LAUNCHES[tgn.NAME]
-        got = _k1_grads(tgn.gn_mish_mask, *args)
-        assert kernels.LAUNCHES[tgn.NAME] == before + 1
-        want = _k1_grads(tgn.gn_mish_mask_ref, *args)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            assert (g - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
+    for shape in [(2, 8, 26, 64), (1, 4, 16, 128), (3, 6, 20, 32), (2, 128, 128, 64),
+                  (2, 3, 5, 24)]:
+        assert _bwd_check(shape, getattr(torch, dtype), seed=2) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gn_mish_cuda_kernel_streams_large_slab(dtype):
+    """(1, 64, 128, 872), the top mel bucket's full-resolution shape: in f32
+    a block's rows exceed its shared memory, so the forward streams tiles
+    (the second read from L2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch_dtype = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn(1, 64, 128, 872, generator=gen, device="cuda") * 2 + 0.5).to(torch_dtype)
+    scale = torch.randn(64, generator=gen, device="cuda") * 0.5 + 1
+    bias = torch.randn(64, generator=gen, device="cuda")
+    lens = torch.tensor([800], dtype=torch.int32, device="cuda")
+    plan = tgn._plan(x, 8, False)
+    assert (plan.rpt < plan.rpb) == (dtype == "float32")
+    got = tgn.gn_mish_mask(x, scale, bias, lens).float()
+    want = tgn.gn_mish_mask_ref(x, scale, bias, lens).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= (1e-4 if dtype == "float32" else 0.05)
 
 
 @pytest.mark.gpu

@@ -215,6 +215,46 @@ def test_compute_loss_matches_jax(mode):
                                    err_msg=name)
 
 
+def test_compute_loss_fused_gn_mish_matches_plain(monkeypatch):
+    """With ``fused_gn_mish=1`` the U-Net's GroupNorm -> Mish -> mask goes
+    through K1's autograd Function (on the CPU: the plain forward and the
+    closed-form backward, ``gn_mish_mask_bwd``): the losses and every
+    gradient match the plain modules' (``fused_gn_mish=0``, held to JAX by
+    test_compute_loss_matches_jax) on the same weights and draws, to 1e-5
+    of the largest gradient (f32 sums in another order)."""
+    from facegantts_tpu_torch.ops import gn_mish as tgn
+
+    calls = []
+    bwd = tgn.gn_mish_mask_bwd
+    monkeypatch.setattr(tgn, "gn_mish_mask_bwd", lambda *a: calls.append(1) or bwd(*a))
+    batch = {k: torch.from_numpy(v) for k, v in _loss_batch("speech").items()}
+    rng = np.random.default_rng(5)
+    b, n_feats, _ = batch["y"].shape
+    draws = dict(offset=torch.tensor([5, 11, 4], dtype=torch.int32),
+                 t=torch.from_numpy(rng.uniform(0.05, 0.95, b).astype(np.float32)),
+                 z=torch.from_numpy(rng.standard_normal((b, n_feats, OUT_SIZE)).astype(np.float32)))
+    results = []
+    for fused in ("0", "1"):
+        torch.manual_seed(0)
+        model = FaceTTS.from_config(default_config(env=dict(TINY, fused_gn_mish=fused))).eval()
+        if results:
+            model.load_state_dict(results[0][2])
+        parts, _ = model.compute_loss(batch["x"], batch["x_len"], batch["y"], batch["y_len"],
+                                      batch["spk"], OUT_SIZE, **draws)
+        parts.total.backward()
+        grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+        results.append((parts, grads, model.state_dict()))
+    assert len(calls) == 25  # K1 calls of one U-Net evaluation, each with its backward
+    (plain, plain_grads, _), (fused, fused_grads, _) = results
+    for got, want in zip(fused, plain):
+        np.testing.assert_allclose(got.item(), want.item(), rtol=1e-5)
+    assert set(fused_grads) == set(plain_grads)
+    scale = max(g.abs().max().item() for g in plain_grads.values())
+    for name, g in fused_grads.items():
+        np.testing.assert_allclose(g.numpy(), plain_grads[name].numpy(), rtol=0,
+                                   atol=1e-5 * scale, err_msg=name)
+
+
 # ---------------------------------------------------------------------------
 # optimizer
 
