@@ -52,7 +52,10 @@ non-zero and prints no result line):
    at the five training shapes (against autograd of the plain chain and the
    backward kernel against ``gn_mish_mask_bwd_ref``, 1e-4 of the largest),
    K2 (sums to 1e-5 relative, GroupNorm to 1e-4) and P1, P2 (exactly equal)
-   against their plain versions, with times, bounds and library times.
+   against their plain versions, with times, bounds and library times; for
+   MAS and P1 also the device time alone (``torch.profiler``), and for P1
+   the card time timed in turns with ``torch.add``'s and the host time of a
+   call beside ``torch.add``'s.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -84,6 +87,7 @@ K1_OPS_PER_ELEM = 13  # stats 3 + normalise 2 + mish 7 (exp counted once) + mask
 # backward: normalise 2 + affine 2 + mish' 10 (exp once) + dz 1 + sums 3 + dx 3
 K1_BWD_OPS_PER_ELEM = 21
 K1_FWD_KERNEL, K1_BWD_KERNEL = "gn_mish_fwd_kernel", "gn_mish_bwd_kernel"  # csrc names
+MAS_KERNEL, P1_KERNEL = "mas_kernel", "affine_kernel"  # csrc names (profiler keys hold them)
 PATH_KERNELS = ("gn_mish_mask",)  # wrapper names (kernels.LAUNCHES keys) on the path
 TRAIN_PATH_KERNELS = ("gn_mish_mask", "gn_mish_mask_bwd", "maximum_path")
 AB_ORDER = (0, 1, 1, 0)  # fused_gn_mish in turns
@@ -108,21 +112,29 @@ def log(*a):
 def time_ms(fn, iters=50, reps=7):
     """Median over ``reps`` of the mean time of ``iters`` back-to-back calls,
     by CUDA events, after a warm-up call."""
+    return time_ms_turns([fn], iters, reps)[0]
+
+
+def time_ms_turns(fns, iters=50, reps=7):
+    """``time_ms`` of each of ``fns``, their repetitions taken in turns (one
+    of each, then again), so that all see the same host: medians, in order."""
     import torch
 
-    fn()
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    times = []
+    times = [[] for _ in fns]
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+        for fn, ts in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) / iters)
+    return [statistics.median(ts) for ts in times]
 
 
 def device_profile(fn, n=1):
@@ -151,6 +163,34 @@ def device_profile(fn, n=1):
 def kernel_sum(table, name):
     """Sum of ``table``'s values over the kernels whose name holds ``name``."""
     return sum(v for k, v in table.items() if name in k)
+
+
+def profiled_us(fn, name, n=20):
+    """Device time of one call of ``fn`` in the kernels named ``name``
+    (torch.profiler over ``n`` calls), or None where the profiler saw none
+    ("not measured")."""
+    for _ in range(3):  # the profiler now and then returns no device events
+        us = kernel_sum(device_profile(fn, n=n)[0], name)
+        if us:
+            return us
+    return None
+
+
+def host_us(fn, n=2000):
+    """Host time of one call of ``fn``: ``n`` back-to-back calls on the host
+    clock, not waiting for the card (which keeps up when the host sets the
+    pace), after a warm-up."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / n
 
 
 class strict_f32:
@@ -384,6 +424,7 @@ def mas_check(value, mask):
         "err": 0.0,
         "ms": time_ms(lambda: maximum_path(value, mask), iters=20, reps=5),
         "plain_ms": time_ms(lambda: maximum_path_ref(value, mask), iters=1, reps=3),
+        "dev_us": profiled_us(lambda: maximum_path(value, mask), MAS_KERNEL),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
@@ -556,8 +597,15 @@ def probe_checks(gen):
         out[name] = {"err": 0.0, "ms": time_ms(lambda: fn(arg)),
                      "plain_ms": time_ms(lambda: ref(arg), iters=plain_iters)}
     n1 = x.numel()
-    out[probe.P1_NAME]["bound_ms"], out[probe.P1_NAME]["bound_by"] = bound(8 * n1, n_ops=2 * n1)
-    out[probe.P1_NAME]["library_ms"] = time_ms(lambda: torch.add(one, x, alpha=2.0))
+    p1 = out[probe.P1_NAME]
+    p1["bound_ms"], p1["bound_by"] = bound(8 * n1, n_ops=2 * n1)
+    # host-bound, and the host's pace drifts within a run: the kernel and
+    # the library call in turns, so neither the order nor the drift decides
+    p1["ms"], p1["library_ms"] = time_ms_turns(
+        [lambda: probe.probe_trivial(x), lambda: torch.add(one, x, alpha=2.0)], reps=15)
+    p1["dev_us"] = profiled_us(lambda: probe.probe_trivial(x), P1_KERNEL)
+    p1["host_us"] = host_us(lambda: probe.probe_trivial(x))
+    p1["library_host_us"] = host_us(lambda: torch.add(one, x, alpha=2.0))
     t_y = v.shape[0]
     out[probe.P2_NAME]["bound_ms"], out[probe.P2_NAME]["bound_by"] = bound(
         8 * v.numel(), n_ops=2 * v.numel(), chain_s=t_y * DEP_STEP_CYCLES / SM_CLOCK_HZ)
@@ -813,12 +861,15 @@ def main() -> int:
         log("[train profile] the profiler saw no device time: not measured")
     else:
         k1, k1_bwd = kernel_sum(per, K1_FWD_KERNEL), kernel_sum(per, K1_BWD_KERNEL)
-        mas_us = kernel_sum(per, "mas_kernel")
+        mas_us = kernel_sum(per, MAS_KERNEL)
+        if not mas_us > 0:
+            raise AssertionError(f"[train profile] no device time under {MAS_KERNEL!r}: the MAS "
+                                 f"kernel was renamed or not launched ({sorted(per)[:8]} ...)")
         log(f"[train profile] one warm step, (text, mel) bucket {shape}: device busy "
             f"{busy / 1e3:.1f} ms of {wall:.1f} ms unprofiled wall ({100 * busy / 1e3 / wall:.1f}% "
             f"busy); K1 forward {k1 / 1e3:.2f} ms ({kernel_sum(count, K1_FWD_KERNEL):.0f} "
             f"launches), K1 backward {k1_bwd / 1e3:.2f} ms ({kernel_sum(count, K1_BWD_KERNEL):.0f} "
-            f"launches), MAS {mas_us / 1e3:.3f} ms")
+            f"launches), MAS {mas_us / 1e3:.3f} ms ({kernel_sum(count, MAS_KERNEL):.0f} launches)")
         for k, v in per.most_common(12):
             log(f"[train profile]   {v / 1e3:8.3f} ms  {k[:110]}")
     del tr["state"]
@@ -863,8 +914,8 @@ def main() -> int:
         for label, (value, mask) in mas_cases:
             r = checks[("mas", label, tuple(value.shape))] = mas_check(value, mask)
             log(f"[MAS] {label} {tuple(value.shape)}: paths exactly equal; kernel "
-                f"{r['ms'] * 1e3:.1f} us plain {r['plain_ms'] * 1e3:.1f} us bound "
-                f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+                f"{r['ms'] * 1e3:.1f} us (device only {fmt_us(r['dev_us'])}) plain "
+                f"{r['plain_ms'] * 1e3:.1f} us bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
         del mas_cases
         for shape, _ in K1_TRAIN:
             r = checks[("k1_bwd", shape)] = k1_backward_check(shape, gen)
@@ -887,6 +938,12 @@ def main() -> int:
             log(f"[probe] {k}: exactly equal; kernel {r['ms'] * 1e3:.1f} us plain "
                 f"{r['plain_ms'] * 1e3:.1f} us library {lib} bound {r['bound_ms'] * 1e3:.3f} us "
                 f"({r['bound_by']})")
+        p1 = probes[probe.P1_NAME]
+        log(f"[probe] {probe.P1_NAME}: card time in turns with torch.add: kernel "
+            f"{p1['ms'] * 1e3:.2f} us, torch.add {p1['library_ms'] * 1e3:.2f} us; device only "
+            f"{fmt_us(p1['dev_us'])} a call; host {p1['host_us']:.2f} us a call (torch.add "
+            f"{p1['library_host_us']:.2f} us); the bound ({p1['bound_ms'] * 1e3:.3f} us) lies "
+            f"below one launch's latency")
     bwd = {k: sum(checks[("k1_bwd", s)][k] * n for s, n in K1_TRAIN)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     bwd_only = {k: sum(checks[("k1_bwd", s)]["bwd"][k] * n for s, n in K1_TRAIN)

@@ -35,13 +35,16 @@ def channel_sums_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([xf.sum(dim=(2, 3)), (xf * xf).sum(dim=(2, 3))], dim=1)
 
 
-def _entry():
-    fn = kernels.library("groupnorm").fgt_channel_sums_f32
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_void_p]
-    return fn
+# fgt_channel_sums_f32(x, out, B, C, F * T, stream)
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_void_p)
+_entry = None  # the C entry, resolved at the first launch
+
+
+def _resolve():
+    global _entry
+    _entry = kernels.entry("groupnorm", "fgt_channel_sums_f32", _ARGTYPES)
+    return _entry
 
 
 def channel_sums(x: torch.Tensor) -> torch.Tensor:
@@ -60,8 +63,8 @@ def channel_sums(x: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0 or b * c > 2**31 - 1:
         raise ValueError(f"channel_sums: unsupported shape {tuple(x.shape)}")
     out = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _entry()(x.data_ptr(), out.data_ptr(), b, c, f * t, stream)
+    err = (_entry or _resolve())(x.data_ptr(), out.data_ptr(), b, c, f * t,
+                                 torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err != 0:
         raise RuntimeError(f"channel_sums: CUDA kernel launch failed (cudaError {err})")
     kernels.LAUNCHES[NAME] += 1

@@ -110,3 +110,15 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build([name])[name]["path"])
             _libs[name] = lib
         return lib
+
+
+def entry(name: str, symbol: str, argtypes):
+    """C function ``symbol`` of kernel ``name``'s library with ``argtypes``
+    and an int (cudaError) result, set here once.  A wrapper keeps what this
+    returns in a module-level handle, so a call takes no lock and no
+    attribute lookup.  Pointers and the stream must be ``ctypes.c_void_p``:
+    an int argument would cut them to 32 bits."""
+    fn = getattr(library(name), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    return fn

@@ -5,9 +5,12 @@ not a Pallas kernel; the reference runs a Cython kernel on the host).  The
 Viterbi DP has a strict column-to-column dependency, so a faithful torch
 transcription is a Python loop of several launches per mel column --
 thousands per training step.  On the GPU it is therefore the hand-written
-kernel ``csrc/mas.cu``: one block per batch item walks the columns with the
-previous column in shared memory, keeps every backtrack decision as one bit
-in shared memory and writes the path; nothing returns to the host.
+kernel ``csrc/mas.cu``: a cluster of two blocks per batch item.  In the
+first, up to eight DP warps walk the columns with the text rows in
+registers (no block barrier a column) while the other warps stage the band
+of value and mask into a ring of shared-memory tiles; the second zeroes the
+output.  Every backtrack decision is one bit in shared memory, and after
+the backtrack only the path cells are written; nothing returns to the host.
 :func:`maximum_path_ref` is its plain version, the JAX wavefront op for op
 in f32, so both give the JAX package's path exactly: masked values zeroed,
 lengths from the mask sums (at least 1), the band outside written as -1e9,
@@ -15,8 +18,9 @@ and the backtrack's tie-break ``index == y or v_same < v_diag``.
 
 What bounds the kernel on an H100: the bytes (value and mask read inside
 the feasibility band ``max(0, tx + y - ty) <= x <= min(tx - 1, y)``, the
-only cells the path depends on; the path written whole) and, below them,
-the T_y dependent column steps.
+only cells the path depends on; the path written whole) and the T_y
+dependent column steps of one item, which at the training shapes take
+longer than the bytes (``csrc/mas.cu``'s header).
 """
 
 import ctypes
@@ -27,7 +31,10 @@ from facegantts_tpu_torch.ops import kernels
 
 NAME = "maximum_path"
 _NEG = -1e9
-_TILE = 32  # mel columns per shared-memory tile (csrc/mas.cu kTile)
+_STAGES = 3  # tiles in the ring (csrc/mas.cu kStages)
+# mbarriers, the sum scratch, the DP warps' progress counters and boundary
+# rings (csrc/mas.cu kHeader)
+_HEADER = 2 * _STAGES * 8 + 32 * 4 + 8 * 4 + 7 * 64 * 4
 _MAX_SMEM = 232448  # H100: dynamic shared memory one block may use
 
 
@@ -76,20 +83,39 @@ def maximum_path_ref(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (path * maskf).to(dtype)
 
 
-def _entry():
-    fn = kernels.library("mas").fgt_mas_f32
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong, ctypes.c_void_p])
-    return fn
+# fgt_mas_f32(value, mask, path, B, T_x, T_y, R, W, smem, vec, stream)
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+_entry = None  # the C entry, resolved at the first launch
+
+
+def _resolve():
+    global _entry
+    _entry = kernels.entry("mas", "fgt_mas_f32", _ARGTYPES)
+    return _entry
+
+
+def _col_stride(rows_per_lane: int) -> int:
+    """Floats between two columns of a staged tile (csrc/mas.cu col_stride)."""
+    return (33 * rows_per_lane - 1 + 31) // 32 * 32 + 1
 
 
 def _launch_config(t_x: int, t_y: int):
-    """(threads per block, dynamic shared-memory bytes) of one launch."""
-    threads = max(32, -(-t_x // 32) * 32)
-    smem = 4 * (_TILE * (threads + 1) + 2 * threads + 32 + t_y * (threads // 32) + t_y)
-    return threads, smem
+    """(rows per lane R, mel columns a tile W, dynamic shared bytes) of one
+    launch, or None where no tile width fits one block's shared memory.
+
+    The DP warps keep R = T_x / 32 rounded up to a power of two rows a lane
+    (over up to eight warps); a ring of _STAGES tiles of W columns (the
+    widest of 32, 16, 8 that fits), a 32-bit word of decision bits per row
+    slot (R a lane) and column, and the T_y path rows share the block's
+    memory with the header (csrc/mas.cu's layout)."""
+    r = 1
+    while 32 * r < t_x:
+        r *= 2
+    for w in (32, 16, 8):
+        smem = _HEADER + 4 * _STAGES * w * _col_stride(r) + 4 * t_y * r + 4 * t_y
+        if smem <= _MAX_SMEM:
+            return r, w, smem
+    return None
 
 
 def maximum_path(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -111,16 +137,17 @@ def maximum_path(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"maximum_path: {name} must be a contiguous float32 tensor "
                              f"on {value.device}")
     b, t_x, t_y = value.shape
-    if value.numel() == 0 or t_x > 1024 or b > 2**31 - 1:
+    if value.numel() == 0 or t_x > 1024 or b > 2**30:
         raise ValueError(f"maximum_path: unsupported shape {tuple(value.shape)}")
-    threads, smem = _launch_config(t_x, t_y)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"maximum_path: T_x={t_x}, T_y={t_y} needs {smem} bytes of shared "
-                         f"memory, more than one block has ({_MAX_SMEM})")
+    config = _launch_config(t_x, t_y)
+    if config is None:
+        raise ValueError(f"maximum_path: T_x={t_x}, T_y={t_y} needs more shared memory than "
+                         f"one block has ({_MAX_SMEM} bytes)")
     path = torch.empty_like(value)
-    stream = torch.cuda.current_stream(value.device).cuda_stream
-    err = _entry()(value.data_ptr(), mask.data_ptr(), path.data_ptr(), b, t_x, t_y,
-                   threads, smem, stream)
+    vp, mp = value.data_ptr(), mask.data_ptr()
+    vec = int(t_y % 4 == 0 and vp % 16 == 0 and mp % 16 == 0)
+    err = (_entry or _resolve())(vp, mp, path.data_ptr(), b, t_x, t_y, *config, vec,
+                                 torch._C._cuda_getCurrentRawStream(value.device.index))
     if err != 0:
         raise RuntimeError(f"maximum_path: CUDA kernel launch failed (cudaError {err})")
     kernels.LAUNCHES[NAME] += 1

@@ -33,12 +33,32 @@ P1_SHAPE = (256, 256)
 P2_SHAPE = (256, 8, 128)  # (T_y, B, T_x), the Pallas probe's default
 
 
-def _fn(name: str, argtypes):
-    fn = getattr(kernels.library("probe"), name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return fn
+_P = ctypes.c_void_p
+# fgt_probe_trivial_f32(x, y, n, stream); fgt_probe_dp_loop_f32(v, out, T_y, B, T_x,
+# threads, stream)
+P1_ARGTYPES = (_P, _P, ctypes.c_longlong, _P)
+P2_ARGTYPES = (_P, _P) + (ctypes.c_int,) * 4 + (_P,)
+_p1 = None  # the C entries, resolved at their first launch
+_p2 = None
+# P1's launch path reads module globals, not torch's attributes: at the
+# probe's size each lookup is a visible share of the call
+_F32 = torch.float32
+_empty_like = torch.empty_like
+_launches = kernels.LAUNCHES
+# None in a CPU-only build, where no tensor reaches the launch
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _resolve_p1():
+    global _p1
+    _p1 = kernels.entry("probe", "fgt_probe_trivial_f32", P1_ARGTYPES)
+    return _p1
+
+
+def _resolve_p2():
+    global _p2
+    _p2 = kernels.entry("probe", "fgt_probe_dp_loop_f32", P2_ARGTYPES)
+    return _p2
 
 
 def _check_cuda(name: str, x: torch.Tensor, ndim: int) -> None:
@@ -55,18 +75,24 @@ def probe_trivial_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 def probe_trivial(x: torch.Tensor) -> torch.Tensor:
-    """P1: 2x + 1 (kernel on a CUDA tensor, plain version on a CPU one)."""
-    if x.device.type == "cpu":
-        return probe_trivial_ref(x)
-    _check_cuda(P1_NAME, x, x.dim())
-    y = torch.empty_like(x)
-    fn = _fn("fgt_probe_trivial_f32", [ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.c_longlong, ctypes.c_void_p])
-    err = fn(x.data_ptr(), y.data_ptr(), x.numel(),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    """P1: 2x + 1 (kernel on a CUDA tensor, plain version on a CPU one).
+
+    The launch path is kept short, since at the probe's size the host's
+    call costs more than the kernel: one handle to the C entry, the raw
+    stream handle, and the checks in as few attribute reads as they need."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return probe_trivial_ref(x)
+        raise ValueError(f"{P1_NAME}: unsupported device {x.device}")
+    n = x.numel()
+    if x.dtype is not _F32 or not n or not x.is_contiguous():
+        raise ValueError(f"{P1_NAME}: x must be a contiguous non-empty float32 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    y = _empty_like(x)
+    err = (_p1 or _resolve_p1())(x.data_ptr(), y.data_ptr(), n, _raw_stream(x.get_device()))
     if err != 0:
         raise RuntimeError(f"{P1_NAME}: CUDA kernel launch failed (cudaError {err})")
-    kernels.LAUNCHES[P1_NAME] += 1
+    _launches[P1_NAME] += 1
     return y
 
 
@@ -89,10 +115,9 @@ def probe_dp_loop(v: torch.Tensor) -> torch.Tensor:
     if t_x > 1024:
         raise ValueError(f"{P2_NAME}: T_x={t_x} > 1024")
     out = torch.empty_like(v)
-    fn = _fn("fgt_probe_dp_loop_f32", [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
-             + [ctypes.c_void_p])
-    err = fn(v.data_ptr(), out.data_ptr(), t_y, b, t_x, max(32, -(-t_x // 32) * 32),
-             torch.cuda.current_stream(v.device).cuda_stream)
+    err = (_p2 or _resolve_p2())(v.data_ptr(), out.data_ptr(), t_y, b, t_x,
+                                 max(32, -(-t_x // 32) * 32),
+                                 torch._C._cuda_getCurrentRawStream(v.get_device()))
     if err != 0:
         raise RuntimeError(f"{P2_NAME}: CUDA kernel launch failed (cudaError {err})")
     kernels.LAUNCHES[P2_NAME] += 1

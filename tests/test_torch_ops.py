@@ -390,6 +390,139 @@ def test_maximum_path_cuda_kernel_equals_plain(seed):
         assert torch.equal(got, tmas.maximum_path_ref(v, m))
 
 
+# (B, T_x, T_y, text lengths, mel lengths): T_x of every rows-per-lane R
+# (1, 31 -> 1; 33 -> 2; 100 -> 4; 256 -> 8; 512 -> 16; 1024 -> 32), T_y
+# below 32 and not a multiple of 4 (element loads), and texts longer than
+# their mels (an empty band)
+_MAS_EDGES = [(2, 1, 40, [1, 1], [40, 17]), (3, 31, 29, [31, 20, 5], [29, 29, 3]),
+              (2, 33, 70, [33, 17], [70, 33]), (3, 8, 20, [8, 3, 1], [20, 5, 1]),
+              (2, 5, 7, [5, 2], [7, 7]), (2, 100, 257, [100, 64], [257, 100]),
+              (2, 256, 872, [256, 200], [872, 500]), (2, 512, 600, [512, 300], [600, 450]),
+              (2, 1024, 960, [900, 1024], [960, 960])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["real", "integer", "holes"])
+def test_maximum_path_cuda_kernel_edges(kind):
+    """The MAS kernel against its plain version on the card, exactly, at
+    the edges of its design: every rows-per-lane, unaligned and short mel
+    rows, empty bands, integer values (ties) and a mask with holes inside
+    the text x mel rectangle, where the value is large (the kernel must
+    fold the mask into the value, not only take the lengths from it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from facegantts_tpu_torch.ops import mas as tmas
+
+    rng = np.random.default_rng(7)
+    for b, t_x, t_y, tx, ty in _MAS_EDGES:
+        value = rng.standard_normal((b, t_x, t_y)) * 3
+        if kind == "integer":
+            value = np.round(value)
+        mask = ((np.arange(t_x)[None, :, None] < np.asarray(tx)[:, None, None])
+                & (np.arange(t_y)[None, None, :] < np.asarray(ty)[:, None, None]))
+        if kind == "holes":  # away from the first row and column, which give the lengths
+            holes = rng.random(mask.shape) < 0.1
+            holes[:, 0, :] = holes[:, :, 0] = False
+            value = np.where(holes, 100.0, value)
+            mask = mask & ~holes
+        v = torch.tensor(value, dtype=torch.float32, device="cuda")
+        m = torch.tensor(mask, dtype=torch.float32, device="cuda")
+        got = tmas.maximum_path(v, m)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tmas.maximum_path_ref(v, m)), (b, t_x, t_y)
+
+
+@pytest.mark.parametrize("t_y", [7, 29, 256, 436, 656, 872])
+def test_maximum_path_launch_config(t_y):
+    """The MAS launch for every T_x <= 1024 at the mel buckets and short
+    mel lengths: R rows a lane, the least power of two with 32 R >= T_x; a
+    ring of three tiles of 32, 16 or 8 columns, the widest that fits; shared
+    memory within one block's 232,448 bytes, as csrc/mas.cu lays it out (the
+    ring, a word of bits per row slot and column, the path rows).  Beyond
+    that, no configuration, and the wrapper raises."""
+    from facegantts_tpu_torch.ops import mas as tmas
+
+    for t_x in range(1, 1025):
+        r, w, smem = tmas._launch_config(t_x, t_y)
+        assert r in (1, 2, 4, 8, 16, 32) and 32 * r >= t_x and (r == 1 or 16 * r < t_x)
+        assert w in (32, 16, 8) and smem <= 232448
+        stride = tmas._col_stride(r)
+        assert stride >= 33 * r - 1 and stride % 32 == 1  # holds rows (R-1)*33 + 31
+        header = 6 * 8 + 32 * 4 + 8 * 4 + 7 * 64 * 4  # barriers, scratch, counters, rings
+        tile = 4 * w * stride
+        assert smem == header + 3 * tile + 4 * t_y * r + 4 * t_y
+        if w < 32:  # the wider tile would not fit
+            assert smem + 3 * tile > 232448
+    assert tmas._launch_config(256, t_y)[1] == 32  # the training text buckets take 32 columns
+    assert tmas._launch_config(1024, 1000) is None
+
+
+def test_mas_split_cuts_match_the_kernel_source():
+    """``mas_split`` finds its design in csrc/mas.cu and every text it cuts
+    out of it, exactly once (a cut that no longer matches would raise on
+    the card)."""
+    import os
+
+    from facegantts_tpu_torch import mas_split
+
+    with open(os.path.join(kernels.CSRC_DIR, kernels.SOURCES["mas"])) as f:
+        src = f.read()
+    design = mas_split._design(src)
+    assert design == "warp"
+    for variant, cuts in mas_split.DESIGNS[design][1].items():
+        assert [src.count(cut) for cut, _ in cuts] == [1] * len(cuts), variant
+
+
+def test_kernel_entry_resolved_once(monkeypatch):
+    """The C entries: ``kernels.entry`` sets restype and argtypes on the
+    library's function (stub library here), each wrapper resolves its entry
+    once into a module-level handle, and every pointer and stream argument
+    is a c_void_p (an int would cut a 64-bit address)."""
+    import ctypes
+
+    from facegantts_tpu_torch import probe
+    from facegantts_tpu_torch.ops import groupnorm as tgnorm
+    from facegantts_tpu_torch.ops import mas as tmas
+
+    class Fn:
+        def __init__(self):
+            self.sets, self.restype, self._argtypes = 0, None, None
+
+        @property
+        def argtypes(self):
+            return self._argtypes
+
+        @argtypes.setter
+        def argtypes(self, v):
+            self.sets += 1
+            self._argtypes = v
+
+    class Lib:
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, name):
+            return self.fns.setdefault(name, Fn())
+
+    libs = {n: Lib() for n in ("mas", "probe", "groupnorm")}
+    for n, lib in libs.items():
+        monkeypatch.setitem(kernels._libs, n, lib)
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    cases = [(tmas, "_entry", tmas._resolve, "mas", "fgt_mas_f32", [p] * 3 + [i] * 7 + [p]),
+             (probe, "_p1", probe._resolve_p1, "probe", "fgt_probe_trivial_f32", [p, p, q, p]),
+             (probe, "_p2", probe._resolve_p2, "probe", "fgt_probe_dp_loop_f32",
+              [p, p, i, i, i, i, p]),
+             (tgnorm, "_entry", tgnorm._resolve, "groupnorm", "fgt_channel_sums_f32",
+              [p, p, i, i, q, p])]
+    for module, handle, resolve, lib, symbol, want in cases:
+        monkeypatch.setattr(module, handle, None)
+        fn = resolve()
+        assert fn is libs[lib].fns[symbol] and getattr(module, handle) is fn
+        assert list(fn.argtypes) == want and fn.restype is ctypes.c_int and fn.sets == 1
+        # the wrappers call ``handle or resolve()``: a set handle is used as it is
+        assert (getattr(module, handle) or resolve()) is fn and fn.sets == 1
+
+
 # ---------------------------------------------------------------------------
 # ops/groupnorm (K2)
 
@@ -527,6 +660,30 @@ def test_probe_cuda_kernels_match_plain():
     for shape in [probe.P2_SHAPE, (40, 3, 16), (17, 2, 100)]:
         v = torch.randn(shape, generator=gen, device="cuda")
         assert torch.equal(probe.probe_dp_loop(v), probe.probe_dp_loop_ref(v))
+
+
+@pytest.mark.gpu
+def test_probe_trivial_cuda_edges():
+    """P1 where its 16-byte path does not cover everything: sizes that are
+    not a multiple of 4, a size past one round of the grid, and contiguous
+    views that start off a 16-byte boundary (x and y then aligned unalike,
+    so every element is scalar), each with one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from facegantts_tpu_torch import probe
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    base = torch.randn(3 * 2**20 + 7, generator=gen, device="cuda")
+    for x in [base[:1], base[:3], base[:5], base[:1023], base[:65537], base,
+              base[1:], base[3:1030], base.view(-1)[2:].view(-1, 1)[:-1]]:
+        assert x.is_contiguous()
+        before = kernels.LAUNCHES[probe.P1_NAME]
+        got = probe.probe_trivial(x)
+        assert kernels.LAUNCHES[probe.P1_NAME] == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, probe.probe_trivial_ref(x)), (x.numel(), x.data_ptr() % 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        probe.probe_trivial(base[:7000].view(-1, 7)[:, ::2])
 
 
 # ---------------------------------------------------------------------------
