@@ -43,10 +43,26 @@ non-zero and prints no result line):
    launched 25 times and MAS once per loss evaluation, K1's backward 25
    times per training step (validation runs no backward).  Step times, peak
    memory, buckets, and a ``torch.profiler`` breakdown of one warm step.
-8. K2's only consumer (``FusedGroupNorm``, forward and backward at the five
+8. the GAN path: ``train/loop.train`` at the Config defaults with
+   ``use_gan=1`` (published widths, hinge loss, R1 gamma 15 on every step,
+   batch 64 in micro-batches of 16, the fake sampler in bf16 at AUTO-4
+   steps, the G phase over the whole mel bucket), ``fused_gn_mish=1``, on
+   ``SyntheticDataset`` (seed 0), 4 steps and the GAN validation; every
+   metric finite, R1 applied, no micro-batch skipped, SyncNet unchanged,
+   the discriminator, encoder and decoder moved, and with the counts zeroed
+   just before: per step 500 K1 forwards (400 of them bf16), 100 K1
+   backwards and 4 MAS launches, per validation batch 125 K1 forwards (100
+   bf16) and one MAS.  Then 6 steps on one batch with R1 on and off in turns
+   (each step's launches asserted alone), step times and peak memory, a
+   ``torch.profiler`` breakdown of one warm R1 step, and K1 (bf16 forward at
+   the five B=16 Ty=436 U-Net shapes; f32 forward and backward through the
+   autograd Function at those and at (16, 64, 128, 872)) and MAS (the step's
+   own log-prior, (16, 256, 436), (16, 256, 872)) against their plain
+   versions.
+9. K2's only consumer (``FusedGroupNorm``, forward and backward at the five
    training U-Net shapes) and the probe entry point (P1, P2), each with its
    counts zeroed just before.
-9. MAS (exactly equal paths: on the first training step's own log-prior
+10. MAS (exactly equal paths: on the first training step's own log-prior
    and mask, at B=64 and every (text, mel) bucket the steps ran, and at the
    top buckets T_x 256, T_y 656 and 872), K1's forward and backward kernels
    at the five training shapes (against autograd of the plain chain and the
@@ -103,6 +119,17 @@ TRAIN_OVERRIDES = dict(use_gan=0, fused_gn_mish=1, batch_size=256, num_gpus=4,
 K1_TRAIN = [((64, 64, 128, 128), 5), ((64, 128, 64, 64), 4), ((64, 64, 64, 64), 4),
             ((64, 256, 32, 32), 8), ((64, 128, 32, 32), 4)]
 MAS_SHAPES = [(64, 256, 656), (64, 256, 872)]  # (B, T_x, T_y): top text and mel buckets
+# the GAN step at the Config defaults (use_gan=1, hinge, R1 gamma 15, micro-batch
+# 16, bf16 sampler at AUTO-4 steps, full-length G phase) on the same batch
+GAN_STEPS = 4
+GAN_OVERRIDES = dict(TRAIN_OVERRIDES, use_gan=1)
+GAN_PATH_KERNELS = ("gn_mish_mask", "gn_mish_mask_bwd", "maximum_path")
+GAN_TURNS = (1, 0, 0, 1, 1, 0)  # use_r1 of the extra steps, in turns, on one batch
+# K1 shapes of one U-Net evaluation in a GAN micro-batch (B=16) at the 436 and
+# 872 buckets (the G phase sees the whole bucket), launch counts as K1_EVAL_436
+K1_GAN_436 = [((16, *s[1:]), n) for s, n in K1_EVAL_436]
+K1_GAN_872 = [((16, *s[1:]), n) for s, n in K1_EVAL_872]
+MAS_GAN_SHAPES = [(16, 256, 436), (16, 256, 872)]
 
 
 def log(*a):
@@ -228,7 +255,7 @@ def k1_check(shape, dtype, gen, profile_device=False):
     x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
     scale = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1
     bias = torch.randn(c, generator=gen, device="cuda")
-    lens = torch.tensor([t - 3, t, t // 2, 1][:b] if b > 1 else [t - 3],
+    lens = torch.tensor([(t - 3, t, t // 2, 1)[i % 4] for i in range(b)] if b > 1 else [t - 3],
                         dtype=torch.int32, device="cuda")
     got = gn_mish_mask(x, scale, bias, lens)
     want = gn_mish_mask_ref(x, scale, bias, lens)
@@ -378,6 +405,202 @@ def train_profile(cfg, state, n=2):
         if per:
             break
     return per, wall, (batch.x.shape[1], batch.y.shape[2]), count
+
+
+def disc_forward_flops(cfg, b, f, t):
+    """Multiply-add operations (x2) of one discriminator forward on a
+    (b, 1, f, t) input: ``conv_prev`` and the ladder ((kh, kw), padding
+    (1, disc_padding), time stride on the ladder), then the two 3x3 convs."""
+    kh, kw, c, pad = cfg.kernel_height, cfg.kernel_width, cfg.disc_base_channels, cfg.disc_padding
+    flops, c_in = 0, 1
+    for i in range(cfg.disc_num_layers + 1):
+        stride = 1 if i == 0 else cfg.disc_stride
+        f, t = f + 2 - kh + 1, (t + 2 * pad - kw) // stride + 1
+        flops += 2 * b * c * c_in * kh * kw * f * t
+        c_in = c
+    return flops + 2 * b * (c + 1) * c * 9 * f * t
+
+
+def check_gan_defaults(cfg):
+    """The GAN phase runs the Config defaults of the GAN step."""
+    want = dict(use_gan=1, disc_family="parity", use_spectral_norm=0, disc_loss_type="hinge",
+                use_r1_penalty=1, r1_gamma=15.0, r1_interval=1, micro_batch_size=16,
+                gan_sampler_bf16=1, disc_fake_timesteps=-1, gan_g_crop=0, disc_base_channels=64,
+                disc_num_layers=5, kernel_height=12, kernel_width=5, disc_padding=6)
+    bad = {k: getattr(cfg, k) for k, v in want.items() if getattr(cfg, k) != v}
+    if bad or cfg.train_fake_timesteps != 4 or cfg.per_gpu_batchsize != 64:
+        raise AssertionError(f"[GAN] not the Config defaults: {bad}")
+
+
+def gan_phase(work_dir):
+    """The GAN path: ``train/loop.train`` at the Config defaults with
+    ``use_gan=1`` (published widths, batch 64 in 4 micro-batches of 16, R1 on
+    every step) for GAN_STEPS steps and its GAN validation, then GAN_TURNS
+    extra steps on one batch with R1 on and off in turns (each step's
+    launches counted alone), then one warm R1 step under ``torch.profiler``.
+    Returns what it measured; raises on a failed check."""
+    import shutil
+
+    import torch
+
+    from facegantts_tpu_torch.config import default_config
+    from facegantts_tpu_torch.data.dataset import BucketedLoader, SyntheticDataset
+    from facegantts_tpu_torch.models import facetts as facetts_mod
+    from facegantts_tpu_torch.models import unet as unet_mod
+    from facegantts_tpu_torch.ops import gn_mish, kernels, mas
+    from facegantts_tpu_torch.train.loop import train
+    from facegantts_tpu_torch.train.step import (
+        _micro_split,
+        init_state,
+        make_gan_loss_fns,
+        make_gan_train_step,
+    )
+
+    cfg = default_config(env={}, overrides=GAN_OVERRIDES)
+    check_gan_defaults(cfg)
+    n_micro = cfg.per_gpu_batchsize // cfg.micro_batch_size
+    fwd_step = n_micro * K1_PER_EVAL * (cfg.train_fake_timesteps + 1)
+    bf16_step = n_micro * K1_PER_EVAL * cfg.train_fake_timesteps
+    bwd_step, mas_step = n_micro * K1_PER_EVAL, n_micro
+    train_ds = SyntheticDataset(n_items=1024, n_mels=cfg.n_mels, seed=0)
+    val_ds = SyntheticDataset(n_items=512, n_mels=cfg.n_mels, seed=1)
+    loader = BucketedLoader(train_ds, cfg, cfg.per_gpu_batchsize)
+    buckets = [k for k, _ in loader._epoch_plan(0)[:GAN_STEPS]]
+    init = init_state(cfg, "cpu")  # same seed, same weights
+    init_g = {n: p.detach().clone() for n, p in init.model.named_parameters()}
+    init_d = {n: p.detach().clone() for n, p in init.disc.named_parameters()}
+    del init
+
+    k1_dtypes = collections.Counter()  # dtype of every K1 call
+    mas_seen = []  # the first G phase's (log-prior, mask), to check MAS on
+    orig_k1, orig_mas = unet_mod.gn_mish_mask, facetts_mod.maximum_path
+
+    def k1_recording(x, *a, **k):
+        k1_dtypes[x.dtype] += 1
+        return orig_k1(x, *a, **k)
+
+    def mas_recording(value, mask):
+        if not mas_seen:
+            mas_seen.append((value.clone(), mask.clone()))
+        return orig_mas(value, mask)
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    unet_mod.gn_mish_mask, facetts_mod.maximum_path = k1_recording, mas_recording
+    try:
+        kernels.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        state = train(cfg, work_dir, GAN_STEPS, train_ds, val_ds, device="cuda")
+        wall = time.perf_counter() - t0
+        launches, dtypes = dict(kernels.LAUNCHES), dict(k1_dtypes)
+    finally:
+        unet_mod.gn_mish_mask, facetts_mod.maximum_path = orig_k1, orig_mas
+    peak = torch.cuda.max_memory_allocated()
+
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r for r in recs if "train/g_loss" in r]
+    vals = [r for r in recs if "val/total_loss" in r]
+    if [r["step"] for r in steps] != list(range(1, GAN_STEPS + 1)):
+        raise AssertionError(f"[GAN] logged steps {[r['step'] for r in steps]}")
+    for r in steps + vals:
+        bad = [k for k, v in r.items() if k != "step" and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"[GAN] non-finite {bad} at step {r['step']}")
+    for r in steps:
+        if not (r["train/r1_penalty"] > 0 and r["train/d_nan_skipped"] == 0
+                and r["train/g_nan_skipped"] == 0 and 0 <= r["train/disc_acc"] <= 1):
+            raise AssertionError(f"[GAN] step {r['step']}: {r}")
+    if not vals:
+        raise AssertionError("[GAN] the validation pass ran no batch")
+    n_val = sum(int(r["val/batches"]) for r in vals)
+    # a validation batch: the bf16 sampler (whole batch) and one f32 loss evaluation
+    want = {gn_mish.NAME: GAN_STEPS * fwd_step + n_val * K1_PER_EVAL * (cfg.train_fake_timesteps + 1),
+            gn_mish.BWD_NAME: GAN_STEPS * bwd_step, mas.NAME: GAN_STEPS * mas_step + n_val}
+    want_bf16 = GAN_STEPS * bf16_step + n_val * K1_PER_EVAL * cfg.train_fake_timesteps
+    for k, n in want.items():
+        if launches.get(k, 0) != n:
+            raise AssertionError(f"[GAN] {k} launched {launches.get(k, 0)} times, want {n}")
+    if dtypes.get(torch.bfloat16, 0) != want_bf16 or sum(dtypes.values()) != want[gn_mish.NAME]:
+        raise AssertionError(f"[GAN] K1 calls by dtype {dtypes}, want {want_bf16} in bf16")
+    final_g = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    final_d = {n: p.detach().cpu() for n, p in state.disc.named_parameters()}
+    sync = [n for n in init_g if n.startswith("syncnet.")]
+    if not sync or not all(torch.equal(final_g[n], init_g[n]) for n in sync):
+        raise AssertionError("[GAN] a SyncNet parameter moved")
+    if all(torch.equal(final_d[n], p) for n, p in init_d.items()):
+        raise AssertionError("[GAN] no discriminator parameter moved")
+    for part in ("encoder.", "decoder."):
+        if all(torch.equal(final_g[n], p) for n, p in init_g.items() if n.startswith(part)):
+            raise AssertionError(f"[GAN] no {part[:-1]} parameter moved")
+    del final_g, final_d, init_g, init_d
+
+    # R1 on and off in turns on one batch, each step's launches counted alone
+    train_step, _ = make_gan_train_step(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = next(loader.epoch(0))
+    turns = {1: [], 0: []}
+    peaks = {1: [], 0: []}
+    for use_r1 in GAN_TURNS:
+        k1_dtypes.clear()
+        unet_mod.gn_mish_mask = k1_recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.LAUNCHES.clear()
+        try:
+            t1 = time.perf_counter()
+            _, metrics = train_step(state, batch, gen, use_r1=bool(use_r1))
+            loss = float(metrics["g_loss"])  # synchronises
+            ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            unet_mod.gn_mish_mask = orig_k1
+        got = dict(kernels.LAUNCHES)
+        want_step = {gn_mish.NAME: fwd_step, gn_mish.BWD_NAME: bwd_step, mas.NAME: mas_step}
+        if any(got.get(k, 0) != n for k, n in want_step.items()) or \
+                k1_dtypes.get(torch.bfloat16, 0) != bf16_step:
+            raise AssertionError(f"[GAN] one step launched {got} (K1 by dtype {dict(k1_dtypes)}), "
+                                 f"want {want_step} with {bf16_step} bf16 forwards")
+        if not math.isfinite(loss) or (float(metrics["r1_penalty"]) > 0) != bool(use_r1):
+            raise AssertionError(f"[GAN] use_r1={use_r1}: g_loss {loss}, "
+                                 f"r1_penalty {float(metrics['r1_penalty'])}")
+        turns[use_r1].append(ms)
+        peaks[use_r1].append(torch.cuda.max_memory_allocated())
+    step_launches = got
+
+    # one micro-batch of that batch by part, warm: the sampler, the D phase
+    # with and without R1 (forward, loss, gradients), the G phase
+    sample_fake, d_loss_fn, g_loss_fn = make_gan_loss_fns(cfg)
+    mb = _micro_split(batch.to("cuda"), cfg.micro_batch_size)[1][0]
+    d_params = list(state.disc.parameters())
+    g_params = [p for n, p in state.model.named_parameters() if not n.startswith("syncnet.")]
+    fake = sample_fake(state.model, mb, gen)
+
+    def d_phase(use_r1):
+        torch.autograd.grad(d_loss_fn(state.disc, mb.y, fake, use_r1)[0], d_params)
+
+    def g_phase():
+        state.model.train()
+        torch.autograd.grad(g_loss_fn(state.model, state.disc, mb, fake, False)[0], g_params,
+                            allow_unused=True)
+
+    parts_ms = dict(zip(("sampler", "D phase, R1 on", "D phase, R1 off", "G phase"), time_ms_turns(
+        [lambda: sample_fake(state.model, mb, gen), lambda: d_phase(True), lambda: d_phase(False),
+         g_phase], iters=1, reps=3)))
+
+    profiles = {}
+    for use_r1 in (1, 0):  # one warm step each; R1's cost by kernel is the difference
+        for _ in range(3):  # the profiler now and then returns no device events
+            profiles[use_r1] = device_profile(
+                lambda: train_step(state, batch, gen, use_r1=bool(use_r1)), n=1)
+            if profiles[use_r1][0]:
+                break
+    return {
+        "cfg": cfg, "steps": steps, "vals": vals, "launches": launches, "dtypes": dtypes,
+        "wall_s": wall, "step_ms": [1e3 / r["train/steps_per_sec"] for r in steps],
+        "peak_bytes": peak, "buckets": buckets, "n_val": n_val, "turns": turns, "peaks": peaks,
+        "step_launches": step_launches, "turn_bucket": (batch.x.shape[1], batch.y.shape[2]),
+        "profiles": profiles, "mas_inputs": mas_seen[0], "parts_ms": parts_ms,
+    }
 
 
 def mas_inputs(shape, gen):
@@ -874,7 +1097,113 @@ def main() -> int:
             log(f"[train profile]   {v / 1e3:8.3f} ms  {k[:110]}")
     del tr["state"]
 
-    # ---- 8. FusedGroupNorm (K2's only consumer) and the probe (P1, P2) ---------
+    # ---- 8. GAN training at full width ------------------------------------------
+    gan = gan_phase(os.path.join(ROOT, "runs", "chip_smoke_gan"))
+    cfg_g = gan["cfg"]
+    for r, ms in zip(gan["steps"], gan["step_ms"]):
+        log(f"[GAN] step {r['step']} (R1 on): {ms:.1f} ms " + " ".join(
+            f"{k[6:]}={v:.4f}" for k, v in r.items() if k.startswith("train/")
+            and k != "train/steps_per_sec"))
+    for r in gan["vals"]:
+        log(f"[GAN] val after step {r['step']}: " + " ".join(
+            f"{k[4:]}={v:.4f}" for k, v in r.items() if k.startswith("val/")))
+    log(f"[GAN] {smi}: batch {cfg_g.per_gpu_batchsize} in micro-batches of "
+        f"{cfg_g.micro_batch_size}, {cfg_g.disc_loss_type} loss, R1 gamma {cfg_g.r1_gamma} every "
+        f"step, fake sampler bf16 at {cfg_g.train_fake_timesteps} steps, G phase at full length, "
+        f"disc {cfg_g.disc_base_channels}x{cfg_g.disc_num_layers} ({cfg_g.kernel_height}, "
+        f"{cfg_g.kernel_width}); (text, mel) buckets of the steps {gan['buckets']}; "
+        f"{gan['n_val']} validation batches")
+    log(f"[GAN] {smi}: loop steps 1-{GAN_STEPS} (R1 on): first {gan['step_ms'][0]:.1f} ms, then "
+        f"{[round(v, 1) for v in gan['step_ms'][1:]]} ms; peak memory "
+        f"{gan['peak_bytes'] / 2**30:.2f} GiB; {gan['wall_s']:.1f} s with validation; launches "
+        f"{gan['launches']}, K1 by dtype {gan['dtypes']}")
+    for use_r1 in (1, 0):
+        ts = gan["turns"][use_r1]
+        log(f"[GAN] {smi}: bucket {gan['turn_bucket']}, R1 {'on' if use_r1 else 'off'} in turns "
+            f"{GAN_TURNS}: first {ts[0]:.1f} ms, warm {statistics.median(ts[1:]):.1f} ms (all "
+            f"{[round(v, 1) for v in ts]}); peak memory "
+            f"{[round(v / 2**30, 2) for v in gan['peaks'][use_r1]]} GiB")
+    log(f"[GAN] one step's launches (counted alone, asserted): {gan['step_launches']}")
+    log(f"[GAN] {smi}: one micro-batch (B={cfg_g.micro_batch_size}) of bucket "
+        f"{gan['turn_bucket']} by part, warm, CUDA events, median of 3 in turns: " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in gan["parts_ms"].items()))
+    d_fwd = disc_forward_flops(cfg_g, cfg_g.micro_batch_size, cfg_g.n_mels, gan["turn_bucket"][1])
+    d_off, d_on = gan["parts_ms"]["D phase, R1 off"], gan["parts_ms"]["D phase, R1 on"]
+    log(f"[GAN] {smi}: one discriminator forward on the micro-batch: {d_fwd / 1e12:.3f} TFLOP; "
+        f"the D phase without R1 (two forwards and their backward, counted as 6 forwards) "
+        f"runs at {6 * d_fwd / d_off / 1e9:.1f} TFLOP/s; R1 adds {d_on - d_off:.1f} ms "
+        f"({(d_on - d_off) / d_off * 6:.1f} forwards' worth at that rate)")
+    for kernel in GAN_PATH_KERNELS:
+        if not gan["launches"].get(kernel):
+            raise AssertionError(f"kernel {kernel} never launched on the GAN path")
+    per, prof_wall, count = gan["profiles"][1]
+    busy = sum(per.values())
+    warm_r1 = statistics.median(gan["turns"][1][1:])
+    if busy == 0:
+        log("[GAN profile] the profiler saw no device time: not measured")
+    else:
+        k1, k1_bwd = kernel_sum(per, K1_FWD_KERNEL), kernel_sum(per, K1_BWD_KERNEL)
+        mas_us = kernel_sum(per, MAS_KERNEL)
+        log(f"[GAN profile] {smi}: one warm R1 step, bucket {gan['turn_bucket']}: device busy "
+            f"{busy / 1e3:.1f} ms of {warm_r1:.1f} ms unprofiled wall "
+            f"({100 * busy / 1e3 / warm_r1:.1f}% busy; {prof_wall / 1e3:.1f} ms under the "
+            f"profiler); K1 forward {k1 / 1e3:.2f} ms ({kernel_sum(count, K1_FWD_KERNEL):.0f} "
+            f"launches), K1 backward {k1_bwd / 1e3:.2f} ms "
+            f"({kernel_sum(count, K1_BWD_KERNEL):.0f} launches), MAS {mas_us / 1e3:.3f} ms "
+            f"({kernel_sum(count, MAS_KERNEL):.0f} launches)")
+        for k, v in per.most_common(15):
+            log(f"[GAN profile]   {v / 1e3:8.3f} ms  {k[:110]}")
+        per0, _, count0 = gan["profiles"][0]
+        if per0:
+            extra = collections.Counter({k: v - per0.get(k, 0.0) for k, v in per.items()})
+            log(f"[GAN profile] {smi}: one warm step without R1: device busy "
+                f"{sum(per0.values()) / 1e3:.1f} ms; the kernels R1 adds most to:")
+            for k, v in extra.most_common(6):
+                log(f"[GAN profile]   +{v / 1e3:8.3f} ms  ({count[k]:.0f} launches with R1, "
+                    f"{count0.get(k, 0):.0f} without)  {k[:100]}")
+
+    # K1 and MAS against their plain versions at the GAN path's shapes
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    gan_checks = {}
+    with strict_f32():
+        for shape, _ in K1_GAN_436:
+            p = gn_mish._plan(torch.empty(shape, dtype=torch.bfloat16, device="cuda"), 8, False)
+            r = gan_checks[("k1", shape, "bf16")] = k1_check(shape, torch.bfloat16, gen)
+            log(f"[GAN K1] {shape} bf16 forward: max_abs_err {r['err']:.3e} (bar 0.05); "
+                f"kernel {r['ms'] * 1e3:.1f} us plain {r['plain_ms'] * 1e3:.1f} us library "
+                f"{r['library_ms'] * 1e3:.1f} us bound {r['bound_ms'] * 1e3:.2f} us; plan: "
+                f"{8 * shape[0]} clusters of {p.cluster}, {p.rpb} rows a block in tiles of {p.rpt}")
+        for shape in [s for s, _ in K1_GAN_436] + [K1_GAN_872[0][0]]:
+            r = gan_checks[("k1_bwd", shape)] = k1_backward_check(shape, gen)
+            log(f"[GAN K1 bwd] {shape} f32 through the autograd Function: forward max_abs_err "
+                f"{r['err']:.3e}, gradients vs autograd {r['grad_err']:.3e} and backward kernel vs "
+                f"gn_mish_mask_bwd_ref {r['bwd_err']:.3e} of the largest (bar 1e-4); forward + "
+                f"backward: kernel {r['ms'] * 1e3:.1f} us plain {r['plain_ms'] * 1e3:.1f} us "
+                f"library {r['library_ms'] * 1e3:.1f} us bound {r['bound_ms'] * 1e3:.2f} us; "
+                f"backward alone: kernel {r['bwd']['ms'] * 1e3:.1f} us plain "
+                f"{r['bwd']['plain_ms'] * 1e3:.1f} us bound {r['bwd']['bound_ms'] * 1e3:.2f} us")
+        mas_cases = [("the GAN step's log-prior", gan.pop("mas_inputs"))]
+        mas_cases += [("ragged random", mas_inputs(shape, gen)) for shape in MAS_GAN_SHAPES]
+        for label, (value, mask) in mas_cases:
+            r = gan_checks[("mas", label, tuple(value.shape))] = mas_check(value, mask)
+            log(f"[GAN MAS] {label} {tuple(value.shape)}: paths exactly equal; kernel "
+                f"{r['ms'] * 1e3:.1f} us (device only {fmt_us(r['dev_us'])}) plain "
+                f"{r['plain_ms'] * 1e3:.1f} us bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+        del mas_cases
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    g_fwd = {k: sum(gan_checks[("k1", s, "bf16")][k] * n for s, n in K1_GAN_436) for k in keys}
+    g_both = {k: sum(gan_checks[("k1_bwd", s)][k] * n for s, n in K1_GAN_436) for k in keys}
+    g_bwd = {k: sum(gan_checks[("k1_bwd", s)]["bwd"][k] * n for s, n in K1_GAN_436)
+             for k in keys[:2] + keys[3:]}
+    log(f"[GAN K1] {smi}: one U-Net evaluation at Ty=436, B=16 ({K1_PER_EVAL} launches): "
+        f"bf16 forward (the sampler's) kernel {g_fwd['ms']:.3f} ms plain {g_fwd['plain_ms']:.3f} "
+        f"ms library {g_fwd['library_ms']:.3f} ms bound {g_fwd['bound_ms']:.3f} ms; f32 forward + "
+        f"backward (the G phase's) kernel {g_both['ms']:.3f} ms plain {g_both['plain_ms']:.3f} ms "
+        f"library {g_both['library_ms']:.3f} ms bound {g_both['bound_ms']:.3f} ms; backward "
+        f"kernel alone {g_bwd['ms']:.3f} ms plain {g_bwd['plain_ms']:.3f} ms bound "
+        f"{g_bwd['bound_ms']:.3f} ms")
+
+    # ---- 9. FusedGroupNorm (K2's only consumer) and the probe (P1, P2) ---------
     from facegantts_tpu_torch import probe
     from facegantts_tpu_torch.models.unet import FusedGroupNorm
     from facegantts_tpu_torch.ops import groupnorm as gnorm
@@ -902,7 +1231,7 @@ def main() -> int:
     if not (probe_launches.get(probe.P1_NAME) and probe_launches.get(probe.P2_NAME)):
         raise AssertionError(f"[probe] launches {probe_launches}")
 
-    # ---- 9. the kernels against their plain versions ----------------------------
+    # ---- 10. the kernels against their plain versions ---------------------------
     checks = {}
     # the first training step's own inputs, then ragged random ones at every
     # (text, mel) bucket the steps ran (T_x sets the threads per block) and
@@ -962,11 +1291,13 @@ def main() -> int:
           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     log(f"[lines] kernels line: {gn_mish.NAME} times are one U-Net evaluation's {K1_PER_EVAL} "
         f"K1 launches at Ty=436, B=1, f32 (per-shape lines above), max_abs_err over every f32 "
-        f"shape, launches on the inference ({path_launches[gn_mish.NAME]}) and training "
-        f"({tr['launches'][gn_mish.NAME]}) paths; {gn_mish.BWD_NAME} times are one training "
+        f"shape, launches on the inference ({path_launches[gn_mish.NAME]}), training "
+        f"({tr['launches'][gn_mish.NAME]}) and GAN ({gan['launches'][gn_mish.NAME]}) paths; "
+        f"{gn_mish.BWD_NAME} times are one training "
         f"evaluation's {K1_PER_EVAL} backward launches (B=64), max_abs_err against "
-        f"gn_mish_mask_bwd_ref, launches on the training path; {mas_mod.NAME} at {MAS_SHAPES[-1]}, "
-        f"launches on the training path; {gnorm.NAME} summed over the {len(K1_TRAIN)} "
+        f"gn_mish_mask_bwd_ref, launches on the training and GAN paths; {mas_mod.NAME} at "
+        f"{MAS_SHAPES[-1]}, launches on the training and GAN paths; {gnorm.NAME} summed over the "
+        f"{len(K1_TRAIN)} "
         f"training U-Net shapes, launches in the FusedGroupNorm run; probes at their shapes, "
         f"launches in the probe run")
 
@@ -980,15 +1311,17 @@ def main() -> int:
     log(smi)
     log(json.dumps({"kernels": [
         entry(gn_mish.NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:119",
-              path_launches[gn_mish.NAME] + tr["launches"][gn_mish.NAME],
+              path_launches[gn_mish.NAME] + tr["launches"][gn_mish.NAME]
+              + gan["launches"][gn_mish.NAME],
               dict(f32, bound_by=k1_by), k1_err),
         entry(gn_mish.BWD_NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:262",
-              tr["launches"][gn_mish.BWD_NAME], dict(bwd_only, library_ms=None, bound_by=(
+              tr["launches"][gn_mish.BWD_NAME] + gan["launches"][gn_mish.BWD_NAME],
+              dict(bwd_only, library_ms=None, bound_by=(
                   collections.Counter(checks[("k1_bwd", s)]["bwd"]["bound_by"]
                                       for s, _ in K1_TRAIN).most_common(1)[0][0])),
               max(checks[("k1_bwd", s)]["bwd_abs_err"] for s, _ in K1_TRAIN)),
         entry(mas_mod.NAME, "csrc/mas.cu", "facegantts_tpu/ops/mas.py:38",
-              tr["launches"][mas_mod.NAME], mas_big, 0.0),
+              tr["launches"][mas_mod.NAME] + gan["launches"][mas_mod.NAME], mas_big, 0.0),
         entry(gnorm.NAME, "csrc/groupnorm.cu", "facegantts_tpu/ops/groupnorm.py:72",
               gn_launches[gnorm.NAME], dict(k2, bound_by=collections.Counter(
                   checks[("k2", s)]["bound_by"] for s, _ in K1_TRAIN).most_common(1)[0][0]),

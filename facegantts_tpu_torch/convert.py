@@ -8,11 +8,15 @@ each leaf), into the port's torch ``state_dict``s:
   per module (:func:`text_encoder_state_dict`, :func:`unet_state_dict`,
   :func:`syncnet_state_dict`);
 - :func:`hifigan_state_dict`: HiFi-GAN ``params`` ->
-  ``HiFiGANGenerator.state_dict()``.
+  ``HiFiGANGenerator.state_dict()``;
+- :func:`discriminator_state_dict`: ``SpectrogramDiscriminator`` ``params``
+  (parity family, weight norm) -> the port's discriminator state_dict.
 
 Layouts: conv kernels (kh, kw, I, O) / (k, I, O) become (O, I, kh, kw) /
 (O, I, k); Dense layers that stand in for 1x1 convs become (O, I, 1[, 1]);
 transposed-conv kernels (k.., I, O) become torch's (I, O, k..); flax
+``WeightNorm``'s per-channel ``scale`` becomes ``weight_g`` (O, 1, 1, 1) and
+the kernel it normalises ``weight_v``; flax
 BatchNorm ``mean`` / ``var`` become ``running_mean`` / ``running_var``.
 Variables initialised through ``FaceTTS.compute_loss`` hold the whole model
 that the loss runs, the SyncNet audio stream and its ``batch_stats``
@@ -253,4 +257,25 @@ def hifigan_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                     sd.put(f"{rb}.{c}.{k}.weight", _conv1d(blk[f"{c}_{k}"]["kernel"]))
                     sd.put(f"{rb}.{c}.{k}.bias", blk[f"{c}_{k}"]["bias"])
                 k += 1
+    return dict(sd)
+
+
+def discriminator_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``SpectrogramDiscriminator`` ``params`` (parity family, weight
+    norm, no speaker path) -> the port's discriminator state_dict.  flax
+    numbers its ``WeightNorm_i`` in call order: ``conv_prev`` 0, ``conv_j``
+    j + 1, ``post_0`` and ``post_1`` last (``import_discriminator``'s
+    order)."""
+    n = 0
+    while f"conv_{n}" in params:
+        n += 1
+    names = [("conv_prev", "conv_prev")] + [(f"conv_{i}", f"convs.{i}") for i in range(n)]
+    names += [("post_0", "conv_post.0"), ("post_1", "conv_post.1")]
+    sd = _SD()
+    for idx, (fname, tname) in enumerate(names):
+        kernel = _conv2d(params[fname]["kernel"])
+        scale = _a(params[f"WeightNorm_{idx}"][f"{fname}/kernel/scale"])
+        sd.put(tname + ".weight_g", scale.reshape(-1, 1, 1, 1))
+        sd.put(tname + ".weight_v", kernel)
+        sd.put(tname + ".bias", params[fname]["bias"])
     return dict(sd)

@@ -100,8 +100,11 @@ class FaceTTS(nn.Module):
         """Phase 1: text + face -> prior means, ceiled durations, mel lengths."""
         spk_e = spk if spk_is_embedding else self.speaker_embedding(spk)
         mu_x, logw, x_mask = self.encoder(x, x_lengths, spk_e)
-        w = torch.exp(logw) * x_mask
-        w_ceil = torch.ceil(w) * length_scale  # the reference scales after ceil
+        # exp and ceil in f32 also for a bf16 model, as XLA's fused bf16
+        # code computes them: a bf16-rounded exp that lands on an integer
+        # from above would ceil one frame short
+        w = torch.exp(logw.float()) * x_mask
+        w_ceil = (torch.ceil(w) * length_scale).to(logw.dtype)  # the reference scales after ceil
         y_lengths = torch.clamp(w_ceil.sum(dim=(1, 2)), min=1.0)
         return mu_x, w_ceil, x_mask, y_lengths, spk_e
 

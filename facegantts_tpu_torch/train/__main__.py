@@ -1,13 +1,13 @@
 """Training entry point of the PyTorch port (the root ``train.py``'s
 counterpart).
 
-    python -m facegantts_tpu_torch.train use_gan=0 max_steps=N [key=value ...] [device=cpu]
+    python -m facegantts_tpu_torch.train max_steps=N [key=value ...] [device=cpu]
 
 Every Config key works as an override (environment variables and
-``config=<file.json>`` too).  Runs the plain FaceTTS step on the GPU unless
-``device=cpu``; ``work_dir=`` (default ``runs/default``) receives
-``metrics.jsonl``.  ``use_gan=1``, the Config default, raises until the GAN
-slice is ported.
+``config=<file.json>`` too).  Trains the GAN (``use_gan=1``, the Config
+default: the discriminator and the fused D+G step) or, with ``use_gan=0``,
+the plain FaceTTS step, on the GPU unless ``device=cpu``; ``work_dir=``
+(default ``runs/default``) receives ``metrics.jsonl``.
 """
 
 import sys

@@ -1,12 +1,13 @@
 """Training loop of the PyTorch port: the core of the JAX package's
-``train/loop.py`` for the plain (no-GAN) step on one device.
+``train/loop.py`` on one device.
 
 Packed data (or synthetic data when there is none), the bucketed loader,
-:func:`make_plain_train_step`, JSONL metrics, the divergence watchdog and a
-validation pass at the end of every epoch.  Not ported yet, and so not run:
-checkpointing (``save_step``, top-k), early stopping, in-training evaluation
-(``eval_interval``), graceful shutdown on SIGTERM and the GAN step;
-``use_gan=1`` and ``resume_from`` raise.
+the GAN step (``use_gan=1``, :func:`make_gan_train_step`, with the switches
+of :func:`gan_flags`) or the plain step (:func:`make_plain_train_step`),
+JSONL metrics, the divergence watchdog and a validation pass at the end of
+every epoch.  Not ported yet, and so not run: checkpointing (``save_step``,
+top-k), early stopping, in-training evaluation (``eval_interval``) and
+graceful shutdown on SIGTERM; ``resume_from`` raises.
 """
 
 import json
@@ -21,7 +22,12 @@ from facegantts_tpu_torch.config import Config
 from facegantts_tpu_torch.data.dataset import BucketedLoader, SyntheticDataset, load_packed
 from facegantts_tpu_torch.synthesis import resolve_device
 from facegantts_tpu_torch.train.state import TrainState
-from facegantts_tpu_torch.train.step import init_state, make_plain_train_step
+from facegantts_tpu_torch.train.step import (
+    check_ported,
+    init_state,
+    make_gan_train_step,
+    make_plain_train_step,
+)
 
 
 class MetricLogger:
@@ -60,10 +66,23 @@ class DivergenceWatchdog:
         return self.streak >= self.patience
 
 
-def _validate(state, val_step, val_loader, generator, logger, step, epoch):
+def gan_flags(cfg: Config, epoch: int, step: int) -> Dict[str, bool]:
+    """The GAN step's switches at ``epoch`` for the update after ``step``
+    updates (the JAX loop's): D trains from ``warmup_disc_epochs``, G from
+    ``freeze_gen_epochs``, and R1 applies from ``r1_start_epoch`` on every
+    ``r1_interval``-th step (lazy R1)."""
+    return {
+        "train_disc": epoch >= cfg.warmup_disc_epochs,
+        "train_gen": epoch >= cfg.freeze_gen_epochs,
+        "use_r1": bool(cfg.use_r1_penalty) and epoch >= cfg.r1_start_epoch
+        and step % max(1, cfg.r1_interval) == 0,
+    }
+
+
+def _validate(state, val_step, val_loader, generator, logger, step, epoch, **kw):
     vals = []
     for vb in val_loader.epoch(0):
-        vals.append({k: float(v) for k, v in val_step(state, vb, generator).items()})
+        vals.append({k: float(v) for k, v in val_step(state, vb, generator, **kw).items()})
     if not vals:
         print(f"[WARN] epoch {epoch}: validation produced 0 batches -- val set too "
               f"small for the batch size per bucket; no val metrics this epoch")
@@ -82,10 +101,7 @@ def train(cfg: Config, work_dir: str = "runs/default", max_steps: Optional[int] 
     on the CPU.  ``train_ds``/``val_ds`` default to the packed corpus under
     ``cfg.packed_data_dir``, falling back to synthetic data.  Metrics go to
     ``<work_dir>/metrics.jsonl``."""
-    if cfg.use_gan:
-        raise NotImplementedError(
-            "use_gan=1: the GAN training step is not ported yet (it comes with the "
-            "GAN slice of the port); pass use_gan=0 for the plain FaceTTS step")
+    check_ported(cfg)
     if cfg.resume_from:
         raise NotImplementedError(
             f"resume_from={cfg.resume_from!r}: warm starts and checkpoints are not "
@@ -114,12 +130,14 @@ def train(cfg: Config, work_dir: str = "runs/default", max_steps: Optional[int] 
         torch.manual_seed(cfg.seed)  # dropout
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
         state = init_state(cfg, device)
-        train_step, val_step = make_plain_train_step(cfg, device)
+        make_step = make_gan_train_step if cfg.use_gan else make_plain_train_step
+        train_step, val_step = make_step(cfg, device)
         step, epoch = state.step, 0
         t_last, n_last = time.time(), step
         while step < max_steps:
             for b in loader.epoch(epoch):
-                state, metrics = train_step(state, b, generator)
+                flags = gan_flags(cfg, epoch, step) if cfg.use_gan else {}
+                state, metrics = train_step(state, b, generator, **flags)
                 step += 1
                 if step % cfg.log_every_n_steps == 0 or step == 1:
                     m = {k: float(v) for k, v in metrics.items()}
@@ -135,7 +153,8 @@ def train(cfg: Config, work_dir: str = "runs/default", max_steps: Optional[int] 
                     print(f"[step {step}] " + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
                 if step >= max_steps:
                     break
-            _validate(state, val_step, val_loader, generator, logger, step, epoch)
+            val_kw = {"train_disc": gan_flags(cfg, epoch, step)["train_disc"]} if cfg.use_gan else {}
+            _validate(state, val_step, val_loader, generator, logger, step, epoch, **val_kw)
             epoch += 1
     logger.close()
     return state

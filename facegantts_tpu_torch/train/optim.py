@@ -14,10 +14,18 @@ every gradient enters the norm and the clip, and the frozen parameters are
 simply not handed to the torch optimizer.  Schedules follow optax's
 convention: update n uses the schedule at count n, so a warm-up starts at
 learning rate 0.
+
+The GAN step has two more (JAX package ``build_gan_generator_optimizer``
+and ``build_discriminator_optimizer``, reference
+face_tts_w_discriminator.py:116-125, 312-313):
+:class:`GanGeneratorOptimizer` clips the encoder's and the decoder's
+gradients each by its own global norm and runs Adam at a constant rate on
+each, and never sees SyncNet; :class:`DiscriminatorOptimizer` clips and runs
+Adam with the discriminator's betas and eps.
 """
 
 import math
-from typing import Callable, List
+from typing import Callable, List, Sequence
 
 import torch
 
@@ -62,6 +70,18 @@ def build_schedule(cfg: Config) -> Schedule:
         return main
     warm = _polynomial(0.0, lr, 1.0, max(warmup, 1))
     return lambda n: warm(n) if n < warmup else main(n - warmup)
+
+
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` in place: each gradient becomes
+    ``t if norm < max_norm else (t / norm) * max_norm``.  Returns the norm
+    before the clip; no host synchronisation."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+    return norm
 
 
 def frozen_aud_trunk(name: str) -> bool:
@@ -115,15 +135,62 @@ class GeneratorOptimizer:
         grads = [p.grad for p in self.params if p.grad is not None]
         if not grads:
             raise RuntimeError("GeneratorOptimizer.step: no gradients")
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        # optax clip_by_global_norm: t if norm < max else (t / norm) * max
-        keep = norm < self.max_norm
-        one = torch.ones_like(norm)
-        torch._foreach_div_(grads, torch.where(keep, one, norm))
-        torch._foreach_mul_(grads, torch.where(keep, one, one * self.max_norm))
+        norm = clip_by_global_norm_(grads, self.max_norm)
         for group, schedule in zip(self.opt.param_groups, self.schedules):
             group["lr"] = schedule(self.count)
         self.opt.step()
         self.count += 1
         return norm
 
+
+
+def gan_group(name: str) -> str:
+    """The GAN generator optimizer's partition of a FaceTTS parameter
+    (JAX ``build_gan_generator_optimizer``'s ``label``): SyncNet is frozen,
+    the decoder is its own group, everything else goes with the encoder."""
+    if name.startswith("syncnet."):
+        return "frozen"
+    return "decoder" if name.startswith("decoder.") else "encoder"
+
+
+class _ClippedAdam:
+    """Per group: clip the gradients in ``.grad`` by the group's own global
+    norm, then Adam."""
+
+    def __init__(self, groups: List[List[torch.nn.Parameter]], max_norm: float, lr: float,
+                 betas=(0.9, 0.999), eps: float = 1e-8):
+        self.groups = [g for g in groups if g]
+        self.max_norm = float(max_norm)
+        self.opt = torch.optim.Adam([{"params": g} for g in self.groups], lr=lr,
+                                    betas=betas, eps=eps)
+
+    def step(self) -> None:
+        for group in self.groups:
+            grads = [p.grad for p in group if p.grad is not None]
+            if not grads:
+                raise RuntimeError(f"{type(self).__name__}.step: no gradients")
+            clip_by_global_norm_(grads, self.max_norm)
+        self.opt.step()
+
+
+class GanGeneratorOptimizer(_ClippedAdam):
+    """The GAN step's generator optimizer: the ``encoder`` and ``decoder``
+    groups of :func:`gan_group`, each clipped by its own global norm to
+    ``grad_clip``, then Adam at the constant ``learning_rate`` with
+    ``gen_eps``.  SyncNet's parameters are not handed over, so their update
+    is exactly zero."""
+
+    def __init__(self, cfg: Config, model: torch.nn.Module):
+        named = list(model.named_parameters())
+        groups = [[p for n, p in named if gan_group(n) == g] for g in ("encoder", "decoder")]
+        self.frozen = [n for n, _ in named if gan_group(n) == "frozen"]
+        super().__init__(groups, cfg.grad_clip, cfg.learning_rate, eps=cfg.gen_eps)
+
+
+class DiscriminatorOptimizer(_ClippedAdam):
+    """Clip by the global norm to ``grad_clip``, then Adam at
+    ``disc_learning_rate`` with ``disc_betas_*`` and ``disc_eps``."""
+
+    def __init__(self, cfg: Config, disc: torch.nn.Module):
+        super().__init__([list(disc.parameters())], cfg.grad_clip, cfg.disc_learning_rate,
+                         betas=(cfg.disc_betas_0, cfg.disc_betas_1), eps=cfg.disc_eps)

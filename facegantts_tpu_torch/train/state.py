@@ -2,7 +2,7 @@
 ``train/state.py``)."""
 
 from dataclasses import dataclass, fields
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -37,12 +37,18 @@ class Batch:
 
 @dataclass
 class TrainState:
-    """The generator, its optimizer and the number of steps taken.
+    """The generator, its optimizer, the number of steps taken and, for the
+    GAN step, the discriminator and its optimizer.
 
     ``model`` holds the parameters and the SyncNet BatchNorm running
     statistics (the JAX ``params`` and ``model_state``); ``optimizer`` is a
-    :class:`facegantts_tpu_torch.train.optim.GeneratorOptimizer`."""
+    :class:`facegantts_tpu_torch.train.optim.GeneratorOptimizer`, or with
+    ``use_gan`` a ``GanGeneratorOptimizer``; ``disc`` (the JAX
+    ``disc_params``) and ``disc_optimizer`` (a ``DiscriminatorOptimizer``)
+    are None without ``use_gan``."""
 
     step: int
     model: torch.nn.Module
     optimizer: Any
+    disc: Optional[torch.nn.Module] = None
+    disc_optimizer: Any = None

@@ -40,7 +40,8 @@ def test_port_imports_with_jax_blocked():
     or the JAX package fails."""
     mods = _port_modules()
     assert {"facegantts_tpu_torch.synthesis", "facegantts_tpu_torch.train.loop",
-            "facegantts_tpu_torch.ops.mas", "facegantts_tpu_torch.probe"} <= set(mods)
+            "facegantts_tpu_torch.ops.mas", "facegantts_tpu_torch.probe",
+            "facegantts_tpu_torch.models.discriminator"} <= set(mods)
     code = (
         "import sys\n"
         + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
@@ -89,6 +90,8 @@ def test_trainer_and_probe_without_cuda_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train(Config(use_gan=0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(Config())  # use_gan=1
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         train_main.main(["use_gan=0", "max_steps=1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         probe.main([])
@@ -136,7 +139,8 @@ def test_port_package_layout_mirrors_jax_package():
     """Each ported module sits at the JAX package's path."""
     for mod in ("config", "synthesis", "ops.align", "ops.gn_mish", "ops.mas",
                 "ops.groupnorm", "models.unet", "models.diffusion", "models.text_encoder",
-                "models.syncnet", "models.facetts", "models.hifigan", "text.cmudict",
+                "models.syncnet", "models.facetts", "models.hifigan", "models.discriminator",
+                "text.cmudict",
                 "utils.audio", "data.dataset", "train.state", "train.optim", "train.step",
                 "train.loop"):
         importlib.import_module(f"facegantts_tpu_torch.{mod}")

@@ -359,6 +359,62 @@ def test_gn_mish_cuda_kernel_streams_large_slab(dtype):
     assert (got - want).abs().max().item() <= (1e-4 if dtype == "float32" else 0.05)
 
 
+def _gan_inputs(shape, seed, dtype):
+    """K1 inputs at a GAN-step shape on the card: ragged lengths over the
+    batch, the affine past both sides of Mish's clamp, an upstream gradient."""
+    b, c, f, t = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    scale = torch.randn(c, generator=gen, device="cuda") * 6
+    bias = torch.randn(c, generator=gen, device="cuda") * 8
+    lens = torch.tensor([(t - 3, t, t // 2, 1)[i % 4] for i in range(b)], dtype=torch.int32,
+                        device="cuda")
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return x, scale, bias, lens, g
+
+
+# The GAN step's full-resolution U-Net slab at batch 16 (n_mels 128; also at
+# 80 mel bins): the G phase runs K1 forward and backward in f32 over the
+# whole mel bucket (436 to 872 frames), the bf16 sampler runs its forward
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(16, 64, 128, 872), (16, 64, 80, 872), (16, 64, 128, 436)])
+def test_gn_mish_cuda_gan_shapes_f32_forward_backward(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    x, scale, bias, lens, g = _gan_inputs(shape, 4, torch.float32)
+    before = dict(kernels.LAUNCHES)
+    args = [v.clone().requires_grad_() for v in (x, scale, bias)]
+    y = tgn.gn_mish_mask(*args, lens)
+    y.backward(g)
+    assert kernels.LAUNCHES[tgn.NAME] - before.get(tgn.NAME, 0) == 1
+    assert kernels.LAUNCHES[tgn.BWD_NAME] - before.get(tgn.BWD_NAME, 0) == 1
+    ref = [v.clone().requires_grad_() for v in (x, scale, bias)]
+    y_ref = tgn.gn_mish_mask_ref(*ref, lens)
+    y_ref.backward(g)
+    plain = tgn.gn_mish_mask_bwd_ref(g, x, scale, bias, lens, tgn.group_stats(x))
+    torch.cuda.synchronize()
+    assert (y - y_ref).abs().max().item() <= 1e-4
+    for a, w, p in zip([v.grad for v in args], [v.grad for v in ref], plain):
+        top = max(1.0, w.abs().max().item())
+        assert (a - w).abs().max().item() <= 1e-4 * top
+        assert (a - p).abs().max().item() <= 1e-4 * top
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(16, 64, 128, 436), (16, 64, 80, 436)])
+def test_gn_mish_cuda_gan_shapes_bf16_forward(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    x, scale, bias, lens, _ = _gan_inputs(shape, 5, torch.bfloat16)
+    # an O(1) affine (f32, as the U-Net passes it), as the other bf16
+    # checks, whose bar (0.05) this keeps
+    scale, bias = scale / 12 + 1, bias / 8
+    got = tgn.gn_mish_mask(x, scale, bias, lens).float()
+    want = tgn.gn_mish_mask_ref(x, scale, bias, lens).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 0.05
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("seed", [0, 1])
 def test_maximum_path_cuda_kernel_equals_plain(seed):
