@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (facegantts_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--old-k1=DIR]
 
 Phases, each of which raises on a failed check (the script then exits
 non-zero and prints no result line):
@@ -56,9 +56,10 @@ non-zero and prints no result line):
    (each step's launches asserted alone), step times and peak memory, a
    ``torch.profiler`` breakdown of one warm R1 step, and K1 (bf16 forward at
    the five B=16 Ty=436 U-Net shapes; f32 forward and backward through the
-   autograd Function at those and at (16, 64, 128, 872)) and MAS (the step's
-   own log-prior, (16, 256, 436), (16, 256, 872)) against their plain
-   versions.
+   autograd Function at those and at (16, 64, 128, 872), with the device
+   time alone of the backward and of the forward + backward pair through
+   ``backward()`` beside the library pair's) and MAS (the step's own
+   log-prior, (16, 256, 436), (16, 256, 872)) against their plain versions.
 9. K2's only consumer (``FusedGroupNorm``, forward and backward at the five
    training U-Net shapes) and the probe entry point (P1, P2), each with its
    counts zeroed just before.
@@ -69,9 +70,19 @@ non-zero and prints no result line):
    backward kernel against ``gn_mish_mask_bwd_ref``, 1e-4 of the largest),
    K2 (sums to 1e-5 relative, GroupNorm to 1e-4) and P1, P2 (exactly equal)
    against their plain versions, with times, bounds and library times; for
-   MAS and P1 also the device time alone (``torch.profiler``), and for P1
-   the card time timed in turns with ``torch.add``'s and the host time of a
-   call beside ``torch.add``'s.
+   MAS, P1, P2 and K1's backward also the device time alone
+   (``torch.profiler``), for P2 its cycles a column, and for P1 the card
+   time timed in turns with ``torch.add``'s and the host time of a call
+   beside ``torch.add``'s.  K1's backward also where its units and channels
+   fall unevenly (T of 1, 3, 32, 109; lengths 0, 1, T; views at an odd
+   offset; the streaming (1, 64, 128, 872) slab) in f32 and bf16, and P2
+   exactly at T_x 1 to 1024, T_y 1 to 256, B 1 and 8 and with a NaN.
+11. with ``--old-k1=DIR`` (an earlier ``gn_mish.py`` and ``gn_mish.cu``,
+   e.g. ``git show <rev>:facegantts_tpu_torch/ops/gn_mish.py`` and
+   ``.../csrc/gn_mish.cu`` into a git-ignored directory; built beside the
+   port's kernels): its backward and this one at the 11 backward shapes of
+   the GAN and plain steps, card times in turns and device times alone,
+   and the sums per U-Net evaluation.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -104,6 +115,7 @@ K1_OPS_PER_ELEM = 13  # stats 3 + normalise 2 + mish 7 (exp counted once) + mask
 K1_BWD_OPS_PER_ELEM = 21
 K1_FWD_KERNEL, K1_BWD_KERNEL = "gn_mish_fwd_kernel", "gn_mish_bwd_kernel"  # csrc names
 MAS_KERNEL, P1_KERNEL = "mas_kernel", "affine_kernel"  # csrc names (profiler keys hold them)
+P2_KERNEL = "dp_loop_kernel"
 PATH_KERNELS = ("gn_mish_mask",)  # wrapper names (kernels.LAUNCHES keys) on the path
 TRAIN_PATH_KERNELS = ("gn_mish_mask", "gn_mish_mask_bwd", "maximum_path")
 AB_ORDER = (0, 1, 1, 0)  # fused_gn_mish in turns
@@ -130,6 +142,11 @@ GAN_TURNS = (1, 0, 0, 1, 1, 0)  # use_r1 of the extra steps, in turns, on one ba
 K1_GAN_436 = [((16, *s[1:]), n) for s, n in K1_EVAL_436]
 K1_GAN_872 = [((16, *s[1:]), n) for s, n in K1_EVAL_872]
 MAS_GAN_SHAPES = [(16, 256, 436), (16, 256, 872)]
+# the K1 backward's shapes: a GAN eval's (B=16, 436), the streaming 872 slab,
+# a plain step's eval (B=64, 128 frames), with launches per eval (0: none)
+K1_BWD_SHAPES = K1_GAN_436 + [(K1_GAN_872[0][0], 0)] + K1_TRAIN
+P2_SHAPES = [(t_y, b, t_x) for t_x in (1, 31, 33, 100, 128, 1024) for t_y in (1, 17, 256)
+             for b in (1, 8)]
 
 
 def log(*a):
@@ -192,12 +209,16 @@ def kernel_sum(table, name):
     return sum(v for k, v in table.items() if name in k)
 
 
-def profiled_us(fn, name, n=20):
-    """Device time of one call of ``fn`` in the kernels named ``name``
-    (torch.profiler over ``n`` calls), or None where the profiler saw none
-    ("not measured")."""
+def profiled_us(fn, name="", n=20):
+    """Device time of one call of ``fn`` in the kernels whose name holds
+    ``name`` (all: ""), from torch.profiler over ``n`` calls: each kernel's
+    mean time a launch times its launches a call (rounded), so that an event
+    the profiler drops or carries over does not move the result; None where
+    it saw none ("not measured")."""
     for _ in range(3):  # the profiler now and then returns no device events
-        us = kernel_sum(device_profile(fn, n=n)[0], name)
+        per, _, count = device_profile(fn, n=n)
+        us = sum(per[k] / count[k] * max(1, round(count[k])) for k in per
+                 if name in k and count[k] > 0)
         if us:
             return us
     return None
@@ -282,12 +303,7 @@ def k1_check(shape, dtype, gen, profile_device=False):
         for key, fn in (("dev_us", lambda: gn_mish_mask(x, scale, bias, lens)),
                         ("plain_dev_us", lambda: gn_mish_mask_ref(x, scale, bias, lens)),
                         ("library_dev_us", library)):
-            # the profiler now and then returns no device events: retry,
-            # then leave the number out ("not measured") rather than 0
-            for _ in range(3):
-                out[key] = sum(device_profile(fn, n=20)[0].values()) or None
-                if out[key]:
-                    break
+            out[key] = profiled_us(fn)
     return out
 
 
@@ -707,17 +723,26 @@ def k1_backward_check(shape, gen):
     # the backward alone: x, g, scale, bias, lens, stats in; dx, (B, C, 2) out
     bwd_bound = bound(3 * n * 4 + 2 * c * 4 + b * 4 + b * 8 * 8 + b * c * 8,
                       n_ops=n * K1_BWD_OPS_PER_ELEM)
+    def bwd():
+        return gn_mish_mask_bwd(w, x, scale, bias, lens, stats)
+
     return {
         "err": err_y, "grad_err": err_g, "bwd_err": err_plain,
         "bwd_abs_err": max((g - v).abs().max().item() for g, v in zip(kern, plain)),
         "ms": time_ms(lambda: run(gn_mish_mask), iters=5, reps=3),
         "plain_ms": time_ms(lambda: run(gn_mish_mask_ref), iters=5, reps=3),
         "library_ms": time_ms(lambda: run(library), iters=5, reps=3),
+        # device time alone of one forward + backward (every device kernel
+        # of the pair, autograd's included), kernels and library
+        "dev_us": profiled_us(lambda: run(gn_mish_mask)),
+        "library_dev_us": profiled_us(lambda: run(library)),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "bwd": {"ms": time_ms(lambda: gn_mish_mask_bwd(w, x, scale, bias, lens, stats), iters=20,
-                              reps=5),
+        "bwd": {"ms": time_ms(bwd, iters=20, reps=5),
                 "plain_ms": time_ms(lambda: gn_mish_mask_bwd_ref(w, x, scale, bias, lens, stats),
                                     iters=5, reps=3),
+                # the wrapper's device time (the kernel and the sum over b)
+                # and the kernel's alone
+                "dev_us": profiled_us(bwd), "kernel_dev_us": profiled_us(bwd, K1_BWD_KERNEL),
                 "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},
     }
 
@@ -832,7 +857,196 @@ def probe_checks(gen):
     t_y = v.shape[0]
     out[probe.P2_NAME]["bound_ms"], out[probe.P2_NAME]["bound_by"] = bound(
         8 * v.numel(), n_ops=2 * v.numel(), chain_s=t_y * DEP_STEP_CYCLES / SM_CLOCK_HZ)
-    out[probe.P2_NAME]["library_ms"] = None
+    p2 = out[probe.P2_NAME]
+    p2["library_ms"] = None
+    p2["dev_us"] = profiled_us(lambda: probe.probe_dp_loop(v), P2_KERNEL)
+    # the kernel's device time in SM cycles at the maximum clock, a column
+    p2["cycles_per_col"] = None if p2["dev_us"] is None else p2["dev_us"] * 1e-6 * SM_CLOCK_HZ / t_y
+    return out
+
+
+def k1_bwd_case(shape, dtype, lens, gen, offset=False):
+    """The K1 backward kernel alone against ``gn_mish_mask_bwd_ref`` on one
+    input (x and g views at an odd offset if ``offset``: element copies).
+    Bars, of the largest value: f32 1e-4 (sums in another order); bf16
+    dscale and dbias 1e-4 (f32 sums of the same values), dx 2^-8 (one bf16
+    rounding of an f32 result).  Returns the largest relative error."""
+    import torch
+
+    from facegantts_tpu_torch.ops import kernels
+    from facegantts_tpu_torch.ops.gn_mish import (
+        BWD_NAME,
+        gn_mish_mask_bwd,
+        gn_mish_mask_bwd_ref,
+        group_stats,
+    )
+
+    b, c, f, t = shape
+
+    def tensor(sd, shift):
+        v = (torch.randn(shape, generator=gen, device="cuda") * sd + shift).to(dtype)
+        if offset:
+            v = torch.empty(v.numel() + 1, dtype=dtype, device="cuda")[1:].view(shape).copy_(v)
+        return v
+
+    x, g = tensor(2.0, 0.5), tensor(1.0, 0.0)
+    scale = torch.randn(c, generator=gen, device="cuda") * 6
+    bias = torch.randn(c, generator=gen, device="cuda") * 8
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    stats = group_stats(x)
+    before = kernels.LAUNCHES[BWD_NAME]
+    got = gn_mish_mask_bwd(g, x, scale, bias, lens_t, stats)
+    want = gn_mish_mask_bwd_ref(g, x, scale, bias, lens_t, stats)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES[BWD_NAME] != before + 1:
+        raise AssertionError(f"[K1 bwd edges] {shape}: no kernel launch")
+    worst = 0.0
+    for name, a, w in zip(("dx", "dscale", "dbias"), got, want):
+        a, w = a.float(), w.float()
+        rel = (a - w).abs().max().item() / max(1.0, w.abs().max().item())
+        bar = 2.0 ** -8 if (dtype == torch.bfloat16 and name == "dx") else 1e-4
+        if not (torch.isfinite(a).all() and rel <= bar):
+            raise AssertionError(f"[K1 bwd edges] {shape} {dtype} lens {lens} offset {offset}: "
+                                 f"{name} off by {rel:.3e} of the largest (bar {bar:.1e})")
+        worst = max(worst, rel)
+    return worst
+
+
+def k1_bwd_edge_checks(gen):
+    """The backward kernel where its units and channels fall unevenly: T of
+    1, 3, 32 and 109, lengths 0, 1 and T, views at an odd offset, and the
+    streaming 872-frame slab at batch 1, in f32 and bf16.  Returns the
+    number of cases and the largest relative error by dtype."""
+    import torch
+
+    worst, n = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = []
+        for t in (1, 3, 32, 109):
+            for shape in ((2, 16, 8, t), (3, 64, 32, t)):
+                b = shape[0]
+                for lens in ([0] * b, [1] * b, [t] * b, [0, t, 1][:b]):
+                    errs.append(k1_bwd_case(shape, dtype, lens, gen))
+                errs.append(k1_bwd_case(shape, dtype, [t, 1, t // 2][:b], gen, offset=True))
+        errs.append(k1_bwd_case((1, 64, 128, 872), dtype, [800], gen))
+        errs.append(k1_bwd_case((2, 64, 128, 436), dtype, [0, 436], gen, offset=True))
+        worst[str(dtype)[6:]] = max(errs)
+        n += len(errs)
+    return n, worst
+
+
+def p2_shape_checks(gen):
+    """P2 exactly equal to its plain version (NaN where it has NaN) at every
+    (T_y, B, T_x) of P2_SHAPES and with a NaN in the input; returns the
+    number of cases."""
+    import torch
+
+    from facegantts_tpu_torch import probe
+
+    def same(got, want):
+        nan = want.isnan()
+        return torch.equal(got.isnan(), nan) and torch.equal(
+            torch.where(nan, 0.0, got), torch.where(nan, 0.0, want))
+
+    cases = [(shape, None) for shape in P2_SHAPES]
+    cases += [((40, 8, t_x), where) for t_x, where in ((128, (3, 2, 127)), (100, (0, 0, 99)),
+                                                       (33, (10, 5, 7)))]
+    for shape, where in cases:
+        v = torch.randn(shape, generator=gen, device="cuda")
+        if where is not None:
+            v[where] = float("nan")
+        got, want = probe.probe_dp_loop(v), probe.probe_dp_loop_ref(v)
+        torch.cuda.synchronize()
+        if not same(got, want):
+            raise AssertionError(f"[P2] {shape} (NaN at {where}): kernel and plain version differ")
+    return len(cases)
+
+
+def load_old_k1(src_dir, proc, so_path):
+    """The earlier K1 (``gn_mish.py`` and ``gn_mish.cu`` in ``src_dir``, a
+    git-ignored copy) as a module of its own on its own library, built by
+    ``proc``; its launches count in a counter of its own."""
+    import ctypes
+    import importlib.util
+    import types
+
+    log_text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the earlier gn_mish.cu did not build:\n{log_text}")
+    spec = importlib.util.spec_from_file_location("earlier_gn_mish",
+                                                  os.path.join(src_dir, "gn_mish.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = ctypes.CDLL(so_path)
+    mod.kernels = types.SimpleNamespace(library=lambda name: lib,
+                                        LAUNCHES=collections.Counter())
+    return mod
+
+
+def k1_bwd_alt_plan(x):
+    """Where this backward streams a slab in tiles although one block's
+    shared memory would hold its rows whole (one block an SM instead of
+    two), that whole-slab launch, for the turns; else None.  Returns
+    (label, plan)."""
+    from facegantts_tpu_torch.ops import gn_mish
+
+    plan = gn_mish._plan(x, 8, True)
+    elem = x.element_size()
+    smem = gn_mish._smem_bytes(x.shape, 8, elem, True, plan.rpb, plan.rpb)
+    if plan.rpt == plan.rpb or smem > gn_mish._MAX_SMEM:
+        return None
+    return "the slab whole at one block an SM", gn_mish._Plan(
+        x.shape, 8, int(elem == 2), plan.vec, plan.cluster, plan.rpb, plan.rpb, smem, 0)
+
+
+def k1_bwd_turns(old, shape, gen):
+    """The earlier backward kernel and this one at one shape, f32, on the
+    same inputs: both against the plain version (1e-4 of the largest), card
+    times in turns (old, new per repetition), and device times alone in the
+    order old, new, new, old (the wrapper's, kernel and sum over b).  Where
+    this kernel has another launch (``k1_bwd_alt_plan``), that launch joins
+    the turns ("alt")."""
+    import torch
+
+    from facegantts_tpu_torch.ops import gn_mish
+
+    b, c, f, t = shape
+    x = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
+    scale = torch.randn(c, generator=gen, device="cuda") * 6
+    bias = torch.randn(c, generator=gen, device="cuda") * 8
+    lens = torch.tensor([(t - 3, t, t // 2, 1)[i % 4] for i in range(b)], dtype=torch.int32,
+                        device="cuda")
+    w = torch.randn(shape, generator=gen, device="cuda")
+    stats = gn_mish.group_stats(x)
+    fns = [lambda m=m: m.gn_mish_mask_bwd(w, x, scale, bias, lens, stats) for m in (old, gn_mish)]
+    alt = k1_bwd_alt_plan(x)
+    if alt is not None:
+        alt_label, alt_plan = alt
+        key = (tuple(x.shape), 8, x.dtype, True, x.device)
+
+        def alt_fn():
+            own = gn_mish._plans[key]
+            gn_mish._plans[key] = alt_plan
+            try:
+                return gn_mish.gn_mish_mask_bwd(w, x, scale, bias, lens, stats)
+            finally:
+                gn_mish._plans[key] = own
+
+        fns.append(alt_fn)
+    want = gn_mish.gn_mish_mask_bwd_ref(w, x, scale, bias, lens, stats)
+    for label, fn in zip(("earlier", "new", "alt"), fns):
+        got = fn()
+        torch.cuda.synchronize()
+        rel = max((a - v).abs().max().item() / max(1.0, v.abs().max().item())
+                  for a, v in zip(got, want))
+        if not rel <= 1e-4:
+            raise AssertionError(f"[K1 bwd turns] {shape}: {label} kernel off by {rel:.3e}")
+    card = time_ms_turns(fns, iters=20, reps=7)
+    dev = [profiled_us(fns[i]) for i in (0, 1, 1, 0)]
+    out = {"old_ms": card[0], "new_ms": card[1], "old_dev_us": (dev[0], dev[3]),
+           "new_dev_us": (dev[1], dev[2])}
+    if alt is not None:
+        out["alt"], out["alt_ms"], out["alt_dev_us"] = alt_label, card[2], profiled_us(fns[2])
     return out
 
 
@@ -840,7 +1054,34 @@ def fmt_us(v):
     return "not measured" if v is None else f"{v:.1f} us"
 
 
-def main() -> int:
+def fmt_ms(v):
+    return "not measured" if v is None else f"{v:.3f} ms"
+
+
+def bound_share(bound_ms, us):
+    """The bound over a measured time, as a percentage."""
+    return "not measured" if us is None else f"{100 * bound_ms * 1e3 / us:.1f} %"
+
+
+def eval_sums(results, counts):
+    """Device ms of one U-Net evaluation's K1 backward launches from the
+    per-shape ``k1_backward_check`` results: the wrapper's backward, its
+    kernel alone, and the forward + backward pair of kernels and of the
+    library; None where a shape was not measured."""
+    picks = {"bwd": lambda r: r["bwd"]["dev_us"], "kernel": lambda r: r["bwd"]["kernel_dev_us"],
+             "pair": lambda r: r["dev_us"], "library": lambda r: r["library_dev_us"]}
+    out = {}
+    for k, pick in picks.items():
+        vals = [pick(r) for r in results]
+        out[k] = None if None in vals else sum(v * n for v, n in zip(vals, counts)) / 1e3
+    return out
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    # --old-k1=DIR: an earlier gn_mish.py and gn_mish.cu (a git-ignored copy)
+    # whose backward is timed against this one in turns (phase 11)
+    old_k1 = next((a.split("=", 1)[1] for a in args if a.startswith("--old-k1=")), None)
     try:
         import torch
 
@@ -868,6 +1109,13 @@ def main() -> int:
     log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"[setup] device {name} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    old_build = None
+    if old_k1:  # built beside the port's kernels, at the same time
+        old_so = os.path.join(os.path.abspath(old_k1), "libgn_mish_earlier.so")
+        old_build = subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", old_so,
+             os.path.join(old_k1, "gn_mish.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     built = kernels.build()
     log(f"[setup] built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for k, info in built.items():
@@ -1182,6 +1430,11 @@ def main() -> int:
                 f"library {r['library_ms'] * 1e3:.1f} us bound {r['bound_ms'] * 1e3:.2f} us; "
                 f"backward alone: kernel {r['bwd']['ms'] * 1e3:.1f} us plain "
                 f"{r['bwd']['plain_ms'] * 1e3:.1f} us bound {r['bwd']['bound_ms'] * 1e3:.2f} us")
+            log(f"[GAN K1 bwd] {shape} {smi}: device only: backward {fmt_us(r['bwd']['dev_us'])} "
+                f"(kernel {fmt_us(r['bwd']['kernel_dev_us'])}, the rest the sum over b), "
+                f"{bound_share(r['bwd']['bound_ms'], r['bwd']['dev_us'])} of its bound; forward + "
+                f"backward through backward(): kernels {fmt_us(r['dev_us'])}, library "
+                f"{fmt_us(r['library_dev_us'])}")
         mas_cases = [("the GAN step's log-prior", gan.pop("mas_inputs"))]
         mas_cases += [("ragged random", mas_inputs(shape, gen)) for shape in MAS_GAN_SHAPES]
         for label, (value, mask) in mas_cases:
@@ -1195,6 +1448,8 @@ def main() -> int:
     g_both = {k: sum(gan_checks[("k1_bwd", s)][k] * n for s, n in K1_GAN_436) for k in keys}
     g_bwd = {k: sum(gan_checks[("k1_bwd", s)]["bwd"][k] * n for s, n in K1_GAN_436)
              for k in keys[:2] + keys[3:]}
+    g_dev = eval_sums([gan_checks[("k1_bwd", s)] for s, _ in K1_GAN_436],
+                      [n for _, n in K1_GAN_436])
     log(f"[GAN K1] {smi}: one U-Net evaluation at Ty=436, B=16 ({K1_PER_EVAL} launches): "
         f"bf16 forward (the sampler's) kernel {g_fwd['ms']:.3f} ms plain {g_fwd['plain_ms']:.3f} "
         f"ms library {g_fwd['library_ms']:.3f} ms bound {g_fwd['bound_ms']:.3f} ms; f32 forward + "
@@ -1202,6 +1457,9 @@ def main() -> int:
         f"library {g_both['library_ms']:.3f} ms bound {g_both['bound_ms']:.3f} ms; backward "
         f"kernel alone {g_bwd['ms']:.3f} ms plain {g_bwd['plain_ms']:.3f} ms bound "
         f"{g_bwd['bound_ms']:.3f} ms")
+    log(f"[GAN K1] {smi}: the same eval, device only: backward {fmt_ms(g_dev['bwd'])} (kernel "
+        f"{fmt_ms(g_dev['kernel'])}); forward + backward through backward(): kernels "
+        f"{fmt_ms(g_dev['pair'])}, library {fmt_ms(g_dev['library'])}")
 
     # ---- 9. FusedGroupNorm (K2's only consumer) and the probe (P1, P2) ---------
     from facegantts_tpu_torch import probe
@@ -1246,6 +1504,11 @@ def main() -> int:
                 f"{r['ms'] * 1e3:.1f} us (device only {fmt_us(r['dev_us'])}) plain "
                 f"{r['plain_ms'] * 1e3:.1f} us bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
         del mas_cases
+        for shape, _ in K1_BWD_SHAPES:  # the backward's launch plans
+            p = gn_mish._plan(torch.empty(shape, device="cuda"), 8, True)
+            log(f"[K1 bwd plan] {shape} f32: {8 * shape[0]} clusters of {p.cluster}, {p.rpb} rows "
+                f"a block in tiles of {p.rpt}, {p.smem} B shared, bulk copies {bool(p.vec)}; the "
+                f"card holds {p.active} such clusters at once")
         for shape, _ in K1_TRAIN:
             r = checks[("k1_bwd", shape)] = k1_backward_check(shape, gen)
             log(f"[K1 bwd] {shape} f32: forward max_abs_err {r['err']:.3e}, gradients vs "
@@ -1255,6 +1518,19 @@ def main() -> int:
                 f"{r['library_ms'] * 1e3:.1f} us bound {r['bound_ms'] * 1e3:.2f} us; backward "
                 f"alone: kernel {r['bwd']['ms'] * 1e3:.1f} us plain "
                 f"{r['bwd']['plain_ms'] * 1e3:.1f} us bound {r['bwd']['bound_ms'] * 1e3:.2f} us")
+            log(f"[K1 bwd] {shape} {smi}: device only: backward {fmt_us(r['bwd']['dev_us'])} "
+                f"(kernel {fmt_us(r['bwd']['kernel_dev_us'])}, the rest the sum over b), "
+                f"{bound_share(r['bwd']['bound_ms'], r['bwd']['dev_us'])} of its bound; forward + "
+                f"backward through backward(): kernels {fmt_us(r['dev_us'])}, library "
+                f"{fmt_us(r['library_dev_us'])}")
+        n_edges, edge_err = k1_bwd_edge_checks(gen)
+        log(f"[K1 bwd edges] {n_edges} cases (T of 1, 3, 32, 109; lengths 0, 1, T; views at an "
+            f"odd offset; the streaming (1, 64, 128, 872) slab) against gn_mish_mask_bwd_ref: "
+            f"largest error of the largest value {edge_err} (bars: f32 1e-4; bf16 dx 2^-8, "
+            f"dscale and dbias 1e-4)")
+        n_p2 = p2_shape_checks(gen)
+        log(f"[probe] {probe.P2_NAME}: exactly equal at {n_p2} inputs (T_x 1, 31, 33, 100, 128, "
+            f"1024 x T_y 1, 17, 256 x B 1, 8; NaN in the input at three T_x)")
         for shape, _ in K1_TRAIN:
             r = checks[("k2", shape)] = k2_check(shape, gen)
             log(f"[K2] {shape} f32: sums max_abs_err {r['err']:.3e} (relative {r['rel_err']:.2e}, "
@@ -1267,7 +1543,13 @@ def main() -> int:
             log(f"[probe] {k}: exactly equal; kernel {r['ms'] * 1e3:.1f} us plain "
                 f"{r['plain_ms'] * 1e3:.1f} us library {lib} bound {r['bound_ms'] * 1e3:.3f} us "
                 f"({r['bound_by']})")
-        p1 = probes[probe.P1_NAME]
+        p1, p2 = probes[probe.P1_NAME], probes[probe.P2_NAME]
+        cycles = "not measured" if p2["cycles_per_col"] is None else f"{p2['cycles_per_col']:.1f}"
+        log(f"[probe] {smi}: {probe.P2_NAME} {probe.P2_SHAPE}: card {p2['ms'] * 1e3:.2f} us, device "
+            f"only {fmt_us(p2['dev_us'])} ({cycles} cycles a column at "
+            f"{SM_CLOCK_HZ / 1e9:.2f} GHz over {probe.P2_SHAPE[0]} columns), bound "
+            f"{p2['bound_ms'] * 1e3:.3f} us ({DEP_STEP_CYCLES} cycles a column); P1's host time a "
+            f"call {p1['host_us']:.2f} us")
         log(f"[probe] {probe.P1_NAME}: card time in turns with torch.add: kernel "
             f"{p1['ms'] * 1e3:.2f} us, torch.add {p1['library_ms'] * 1e3:.2f} us; device only "
             f"{fmt_us(p1['dev_us'])} a call; host {p1['host_us']:.2f} us a call (torch.add "
@@ -1282,6 +1564,45 @@ def main() -> int:
         f"library {bwd['library_ms']:.3f} ms bound {bwd['bound_ms']:.3f} ms; backward kernel "
         f"alone {bwd_only['ms']:.3f} ms plain {bwd_only['plain_ms']:.3f} ms bound "
         f"{bwd_only['bound_ms']:.3f} ms (device time in a real step: phase 7's profile)")
+    t_dev = eval_sums([checks[("k1_bwd", s)] for s, _ in K1_TRAIN], [n for _, n in K1_TRAIN])
+    log(f"[K1 bwd] {smi}: the same eval, device only: backward {fmt_ms(t_dev['bwd'])} (kernel "
+        f"{fmt_ms(t_dev['kernel'])}); forward + backward through backward(): kernels "
+        f"{fmt_ms(t_dev['pair'])}, library {fmt_ms(t_dev['library'])}")
+
+    # ---- 11. the earlier K1 backward against this one, in turns ------------------
+    if old_build is None:
+        log("[K1 bwd turns] not measured: no --old-k1=DIR (an earlier gn_mish.py and "
+            "gn_mish.cu) given")
+    else:
+        old_mod = load_old_k1(old_k1, old_build, old_so)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        turns = {}
+        with strict_f32():
+            for shape, _ in K1_BWD_SHAPES:
+                r = turns[shape] = k1_bwd_turns(old_mod, shape, gen)
+                bnd = checks.get(("k1_bwd", shape)) or gan_checks[("k1_bwd", shape)]
+                bnd = bnd["bwd"]["bound_ms"]
+                log(f"[K1 bwd turns] {shape} {smi}: card in turns: earlier {r['old_ms'] * 1e3:.1f} "
+                    f"us, new {r['new_ms'] * 1e3:.1f} us; device only (old, new, new, old): "
+                    f"earlier {' / '.join(fmt_us(v) for v in r['old_dev_us'])}, new "
+                    f"{' / '.join(fmt_us(v) for v in r['new_dev_us'])}; bound {bnd * 1e3:.2f} us: "
+                    f"new {bound_share(bnd, r['new_dev_us'][0])} of it on the device, "
+                    f"{bound_share(bnd, r['new_ms'] * 1e3)} on the card")
+                if "alt_ms" in r:
+                    log(f"[K1 bwd turns] {shape} {smi}: the new kernel launched with {r['alt']} "
+                        f"(the launch it did not choose): card {r['alt_ms'] * 1e3:.1f} us, device "
+                        f"only {fmt_us(r['alt_dev_us'])}")
+        for label, shapes in (("GAN eval (B=16, 436)", K1_GAN_436),
+                              ("plain eval (B=64, 128)", K1_TRAIN)):
+            tot = {k: sum(turns[sh][k] * n for sh, n in shapes) for k in ("old_ms", "new_ms")}
+            devs = {k: [v[k] for v in (turns[sh] for sh, _ in shapes)]
+                    for k in ("old_dev_us", "new_dev_us")}
+            dev = {k: None if any(None in v for v in vals) else
+                   [sum(v[i] * n for v, (_, n) in zip(vals, shapes)) / 1e3 for i in (0, 1)]
+                   for k, vals in devs.items()}
+            log(f"[K1 bwd turns] {smi}: one {label}, 25 backward launches: card earlier "
+                f"{tot['old_ms']:.3f} ms, new {tot['new_ms']:.3f} ms; device only earlier "
+                f"{dev['old_dev_us']} ms, new {dev['new_dev_us']} ms")
 
     # ---- lines -----------------------------------------------------------------
     f32 = per_eval[(436, torch.float32)]

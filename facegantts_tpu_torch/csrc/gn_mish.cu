@@ -31,17 +31,29 @@
 //             shared memory, 16 bytes a thread, and writes each part of y
 //             out with a bulk copy while it computes the next.  Rank 0
 //             writes (mean, rstd) for the backward.
-//   backward: a warp per row reduces (sum dz, sum dz * xn); a warp per
-//             channel folds its rows; the per-channel sums give the group
-//             sums (sum dxn = sum_c s_c sum dz) and the (b, c) parameter
+//   backward: x and g arrive in kBwdParts parts, each on its own barrier,
+//             and each part is reduced as soon as it lands: every warp takes
+//             a slice of the part, 16 bytes a lane, and sums dz and dz * xn
+//             per channel (a channel's F*T elements are contiguous; a lane's
+//             frame index comes from its offset, its channel from the warp's
+//             walk over the channel boundaries).  The slices' sums fold into
+//             per-channel sums in slice order; those give the group sums
+//             (sum dxn = sum_c s_c sum dz) and the (b, c) parameter
 //             partials, both exchanged through distributed shared memory in
 //             rank order (deterministic: no atomics); then dx in place and
-//             out by bulk copies, as y.
+//             out by bulk copies, part by part.  Where the cluster holds
+//             the slab's x and g at two blocks an SM (every training shape,
+//             four of the five GAN-436 shapes), they cross device memory
+//             once; in f32 dz replaces g in shared memory, so mish' is
+//             evaluated once.
 // Where a block's rows do not fit its share of shared memory, the same loop
 // runs over tiles: the statistics pass streams the tiles, and the output
-// pass re-reads all but the last (still resident) from L2.  Shapes whose
-// slabs are not 16-byte aligned take the same kernels with plain loads and
-// stores (kVec false).
+// pass re-reads all but the last (still resident), from L2 where it holds
+// them.  (Holding such a slab whole at one block an SM, which the kernel
+// takes as well, measured slower on an H100: two blocks an SM overlap one
+// block's arithmetic with the other's copies.)  Shapes whose slabs are not
+// 16-byte aligned take the same kernels with plain loads and stores (kVec
+// false).
 //
 // At batch 1 there are only 8 slabs; a 16-block cluster needs 16 SMs of one
 // GPC, and the H100 has 7 GPCs that hold one, so one GPC runs two clusters
@@ -54,6 +66,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 
@@ -142,14 +155,16 @@ __device__ __forceinline__ float mish(float v) {
 }
 
 // Its derivative: 1 above the clamp, else w + z (1 - w^2) sigmoid(z) with
-// w = n / (n + 2), written as w + z * 4u(u + 1) / (n + 2)^2 (u <= e^20, so
-// (n + 2)^2 stays below 6e34, inside __fdividef's range).
+// w = n / (n + 2), written as w + z * 4u(u + 1) / (n + 2)^2, both terms from
+// one approximate reciprocal r = 1 / (n + 2) (u <= e^20, so n + 2 < 3e17
+// and r^2 > 1e-35 stay normal): two special-function operations an element,
+// the exp and the reciprocal.
 __device__ __forceinline__ float mish_grad(float v) {
   if (v > 20.f) return 1.f;
   const float u = __expf(v);
   const float n = u * (u + 2.f);
-  const float den = n + 2.f;
-  return __fdividef(n, den) + v * __fdividef(4.f * u * (u + 1.f), den * den);
+  const float r = __fdividef(1.f, n + 2.f);
+  return n * r + v * (4.f * u * (u + 1.f)) * (r * r);
 }
 
 // The two halves of cluster.sync(): arrive once this block's reads of other
@@ -463,33 +478,66 @@ gn_mish_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   cluster_wait();  // no block leaves while another may read its shared memory
 }
 
-// Same grid.  stats (B*G, 2) from the forward; dparams (B, C, 2): per (b, c)
-// sum dz (dbias) and sum dz * xn (dscale), summed over b by the caller.
-// Dynamic shared memory: the x tile, the g tile (each rounded to 16 bytes),
-// rpb row sums and min(C/G, rpb / F + 2) channel sums (float2 each), then
-// rpt row scales and rpt row biases.  In f32 the first pass leaves dz in
-// the g tile, so the resident tile's second pass does not evaluate mish'
-// again.
+// ---- backward -------------------------------------------------------------
+
+constexpr int kBwdParts = 2;  // a backward tile moves as kBwdParts (x, g) pairs of bulk copies
+
+// Part p of kBwdParts of `units` units.
+__device__ __forceinline__ int bwd_part(int units, int p) { return units * p / kBwdParts; }
+
+// Slice k (= part * kWarps + warp) of a tile of `units` units: [s0, s1),
+// the warp's share of part k / kWarps.  Slices are contiguous and ascend with k.
+__device__ __forceinline__ void slice_of(int units, int k, int& s0, int& s1) {
+  const int p0 = bwd_part(units, k / kWarps), n = bwd_part(units, k / kWarps + 1) - p0;
+  const int w = k % kWarps;
+  s0 = p0 + n * w / kWarps;
+  s1 = p0 + n * (w + 1) / kWarps;
+}
+
+// U elements of unit u of a tile (16 bytes when U > 1), as f32.
+template <typename T, int U>
+__device__ __forceinline__ void load_unit(const T* tile, int u, float (&out)[U]) {
+  if constexpr (U == 1) {
+    out[0] = to_f32(tile[u]);
+  } else {
+    const uint4 w = reinterpret_cast<const uint4*>(tile)[u];
+    const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+    for (int k = 0; k < U; ++k) out[k] = to_f32(e[k]);
+  }
+}
+
+// Same grid as the forward (a cluster a slab).  stats (B*G, 2) from the forward; dparams (B, C, 2): per (b, c) sum dz
+// (dbias) and sum dz * xn (dscale), summed over b by the caller.  Dynamic
+// shared memory: the x tile and the g tile (each rounded to 16 bytes); the
+// block's channel sums (min(C/G, rpb / F + 2) float2); a tile's slice
+// partials (min(C/G, rpt / F + 2) + kBwdParts * kWarps float2); rpt row
+// scales and rpt row biases.  Where the block's rows fit (rpt == rpb) the
+// slab stays in shared memory and x and g cross device memory once; in f32
+// the first pass leaves dz in the g tile, so the second does not evaluate
+// mish' again.
 template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)  // <= 64 registers: two blocks an SM
 gn_mish_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                    const float* __restrict__ scale, const float* __restrict__ bias,
                    const int* __restrict__ lens, const float* __restrict__ stats,
                    T* __restrict__ dx, float* __restrict__ dparams, int F, int Tn, int G,
                    int cg_, int rpb, int rpt) {
+  constexpr int kNS = kBwdParts * kWarps;  // pass 1's slices a tile
   constexpr int V = 16 / sizeof(T);
+  constexpr int U = kVec ? V : 1;  // elements of a pass-1 unit
   constexpr bool kKeepDz = sizeof(T) == sizeof(float);
   extern __shared__ __align__(128) unsigned char smem[];
   const size_t tile_bytes = (static_cast<size_t>(rpt) * Tn * sizeof(T) + 15) / 16 * 16;
   T* xt = reinterpret_cast<T*>(smem);
   T* gt = reinterpret_cast<T*>(smem + tile_bytes);
-  float2* rowsum = reinterpret_cast<float2*>(smem + 2 * tile_bytes);
-  float2* chan = rowsum + rpb;
-  float* rows_s = reinterpret_cast<float*>(chan + min(cg_, rpb / F + 2));
+  float2* chan = reinterpret_cast<float2*>(smem + 2 * tile_bytes);
+  float2* part = chan + min(cg_, rpb / F + 2);
+  float* rows_s = reinterpret_cast<float*>(part + min(cg_, rpt / F + 2) + kNS);
   float* rows_b = rows_s + rpt;
   __shared__ float2 s_part;
   __shared__ float2 s_sum;
-  __shared__ __align__(8) uint64_t s_bar;
+  __shared__ __align__(8) uint64_t s_bar[kBwdParts];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int cs = static_cast<int>(cluster.num_blocks());
@@ -503,24 +551,29 @@ gn_mish_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int c_lo = own.r0 / F;
   const int nch = own.r1 > own.r0 ? (own.r1 - 1) / F - c_lo + 1 : 0;
+  const float inv_tn = 1.f / Tn, inv_f = 1.f / F;
   if (kVec && threadIdx.x == 0) {
-    mbar_init(&s_bar);
+    for (int p = 0; p < kBwdParts; ++p) mbar_init(&s_bar[p]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  unsigned parity = 0;
+  unsigned parity = 0;  // of the barriers' current phase: all kBwdParts move together
 
-  // Load the x and g rows [ra, ra + len / Tn) into the tiles.
+  // Start loading the x and g rows [ra, ra + len / Tn) into the tiles: part
+  // p's x and g land on barrier p (vec); else plain copies, complete on return.
   auto load = [&](int ra, int len) {
     const size_t off = base + static_cast<size_t>(ra) * Tn;
     if constexpr (kVec) {
       if (threadIdx.x == 0) {
-        mbar_expect(&s_bar, 2u * len * sizeof(T));
-        bulk_load(xt, x + off, len * sizeof(T), &s_bar);
-        bulk_load(gt, gy + off, len * sizeof(T), &s_bar);
+        const int units = len / V;
+        for (int p = 0; p < kBwdParts; ++p) {
+          const int u0 = bwd_part(units, p), u1 = bwd_part(units, p + 1);
+          const unsigned bytes = 16u * (u1 - u0);
+          mbar_expect(&s_bar[p], 2u * bytes);
+          bulk_load(xt + u0 * V, x + off + u0 * V, bytes, &s_bar[p]);
+          bulk_load(gt + u0 * V, gy + off + u0 * V, bytes, &s_bar[p]);
+        }
       }
-      mbar_wait(&s_bar, parity);
-      parity ^= 1;
     } else {
       copy_plain(xt, x + off, len);
       copy_plain(gt, gy + off, len);
@@ -528,43 +581,120 @@ gn_mish_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
     }
   };
 
-  // 1. per row: sum dz and sum dz * xn (frames past the length have dz = 0)
+  // 1. per channel: sum dz and sum dz * xn (frames past the length have
+  //    dz = 0).  Each part of a tile is reduced as soon as it lands, each
+  //    warp over its slice of the part, 16 bytes a lane: a lane's frame
+  //    index comes from its offset (row_of), its channel from the warp's
+  //    walk over the channel boundaries, which is the same for every lane
+  //    (a unit may straddle rows and channels).
+  //    A warp's sum for a channel goes to part[channel - the tile's first
+  //    channel + slice], a slot no other (slice, channel) pair uses.
   for (int k = 0; k < own.ntiles; ++k) {
     const int ra = own.r0 + k * rpt;
     const int rb = min(ra + rpt, own.r1);
+    const int len = (rb - ra) * Tn;
+    const int units = len / U;
+    const int ct0 = ra / F;  // the tile's first channel (of the group's cg_)
     if (k > 0) {  // everyone is done with the previous tile, whose g tile holds dz
       proxy_fence();
       __syncthreads();
     }
-    load(ra, (rb - ra) * Tn);
-    for (int r = ra + warp; r < rb; r += kWarps) {
-      const int c = g * cg_ + r / F;
-      const float s = scale[c], bb = bias[c];
-      const size_t off = static_cast<size_t>(r - ra) * Tn;
-      float2 sums = make_float2(0.f, 0.f);
-      for (int t = lane; t < valid; t += 32) {
-        const float xn = (to_f32(xt[off + t]) - mean) * rstd;
-        const float dz = to_f32(gt[off + t]) * mish_grad(xn * s + bb);
-        if constexpr (kKeepDz) gt[off + t] = dz;
-        sums.x += dz;
-        sums.y += dz * xn;
+    load(ra, len);
+    for (int p = 0; p < kBwdParts; ++p) {
+      const int kk = p * kWarps + warp;
+      int s0, s1;
+      slice_of(units, kk, s0, s1);
+      // the slice's first channel and its affine, read before the data lands
+      int ch = row_of(ra + row_of(s0 * U, Tn, inv_tn), F, inv_f);
+      int bnd = ((ch + 1) * F - ra) * Tn;  // the tile element where channel ch ends
+      float sc = 0.f, bi = 0.f;
+      if (s0 < s1) sc = scale[g * cg_ + ch], bi = bias[g * cg_ + ch];
+      if constexpr (kVec) mbar_wait(&s_bar[p], parity);
+      if (s0 >= s1) continue;
+      float2 acc = make_float2(0.f, 0.f);
+      for (int u0 = s0; u0 < s1; u0 += 32) {
+        const int u = u0 + lane;
+        const bool in = u < s1;
+        const int t0 = u * U - row_of(u * U, Tn, inv_tn) * Tn;  // frame of the unit's first element
+        float xv[U], gv[U], dz[U];
+        if (in) {
+          load_unit<T, U>(xt, u, xv);
+          load_unit<T, U>(gt, u, gv);
+        }
+        const int step_end = min(u0 + 32, s1) * U;
+        // the elements q of this lane's unit (tile elements u * U + q) in [lo, hi)
+        const auto add = [&](int lo, int hi) {
+#pragma unroll
+          for (int q = 0; q < U; ++q) {
+            const int e = u * U + q;
+            if (in && e >= lo && e < hi) {
+              const int t = t0 + q >= Tn ? t0 + q - Tn : t0 + q;
+              const float xn = (xv[q] - mean) * rstd;
+              dz[q] = t < valid ? gv[q] * mish_grad(xn * sc + bi) : 0.f;
+              acc.x += dz[q];
+              acc.y += dz[q] * xn;
+            }
+          }
+        };
+        if (step_end <= bnd) {  // the whole step in channel ch: the common case
+          add(0, INT_MAX);
+        } else {
+          int clo = 0;  // elements below clo belong to channels already summed
+          while (true) {
+            add(clo, bnd);
+            if (step_end <= bnd) break;
+            // channel ch ends inside this step: its sums are complete
+            acc = warp_sum(acc);
+            if (lane == 0) part[ch - ct0 + kk] = acc;
+            acc = make_float2(0.f, 0.f);
+            clo = bnd;
+            ++ch;
+            bnd += F * Tn;
+            sc = scale[g * cg_ + ch];
+            bi = bias[g * cg_ + ch];
+          }
+        }
+        if constexpr (kKeepDz) {
+          if (in) {
+            if constexpr (U == 1) {
+              gt[u] = dz[0];
+            } else {
+              reinterpret_cast<float4*>(gt)[u] = make_float4(dz[0], dz[1], dz[2], dz[3]);
+            }
+          }
+        }
       }
-      sums = warp_sum(sums);
-      if (lane == 0) rowsum[r - own.r0] = sums;
+      acc = warp_sum(acc);
+      if (lane == 0) part[ch - ct0 + kk] = acc;
     }
-  }
-  __syncthreads();
-  // 2. per channel, a warp folds its rows in order
-  for (int kc = warp; kc < nch; kc += kWarps) {
-    const int c = c_lo + kc;
-    const int ra = max(own.r0, c * F), rb = min(own.r1, (c + 1) * F);
-    float2 sums = make_float2(0.f, 0.f);
-    for (int r = ra + lane; r < rb; r += 32) {
-      sums.x += rowsum[r - own.r0].x;
-      sums.y += rowsum[r - own.r0].y;
+    if constexpr (kVec) parity ^= 1;
+    __syncthreads();
+    // the tile's channel sums, a warp a channel: the partials of the slices
+    // that hold part of it, a lane a slice, summed by one fixed shuffle
+    // tree; added to the block's totals in tile order (deterministic)
+    for (int j = warp; j <= (rb - 1) / F - ct0; j += kWarps) {
+      const int ch = ct0 + j;
+      const int e_lo = (max(ch * F, ra) - ra) * Tn, e_hi = (min((ch + 1) * F, rb) - ra) * Tn;
+      float2 sum = make_float2(0.f, 0.f);
+      for (int kk = lane; kk < kNS; kk += 32) {
+        int s0, s1;
+        slice_of(units, kk, s0, s1);
+        if (s0 < s1 && s0 * U < e_hi && s1 * U > e_lo) {
+          sum.x += part[j + kk].x;
+          sum.y += part[j + kk].y;
+        }
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        float2& tot = chan[ch - c_lo];
+        if (k == 0 || ch * F >= ra) {
+          tot = sum;
+        } else {
+          tot.x += sum.x;
+          tot.y += sum.y;
+        }
+      }
     }
-    sums = warp_sum(sums);
-    if (lane == 0) chan[kc] = sums;
   }
   __syncthreads();
   if (threadIdx.x == 0) {  // this block's part of sum dxn and sum dxn * xn
@@ -577,14 +707,11 @@ gn_mish_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
     s_part = p;
   }
   cluster.sync();
-  if (threadIdx.x == 0) {  // group sums, in rank order: equal in every block
+  if (warp == 0) {  // group sums: a lane a block, one fixed shuffle tree, equal in every block
     float2 sum = make_float2(0.f, 0.f);
-    for (int q = 0; q < cs; ++q) {
-      const float2 p = *cluster.map_shared_rank(&s_part, q);
-      sum.x += p.x;
-      sum.y += p.y;
-    }
-    s_sum = sum;
+    if (lane < cs) sum = *cluster.map_shared_rank(&s_part, lane);
+    sum = warp_sum(sum);
+    if (lane == 0) s_sum = sum;
   }
   // the block holding a channel's first row sums the channel over the
   // blocks that hold it, in rank order, and writes its (b, c) partials
@@ -606,8 +733,9 @@ gn_mish_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   cluster_arrive();
   __syncthreads();
 
-  // 3. dx in place of x, out to global; last tile first (it is resident,
-  //    and in f32 holds dz)
+  // 2. dx in place of x, out to global part by part; last tile first (it is
+  //    resident, and in f32 holds dz); a reloaded tile's parts are computed
+  //    as they land
   const float inv_n = 1.f / (static_cast<float>(rows) * Tn);
   const float m1 = s_sum.x * inv_n, m2 = s_sum.y * inv_n;
   bool have_dz = kKeepDz;
@@ -618,13 +746,44 @@ gn_mish_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
     if (t < valid) dz = have_dz ? gv : gv * mish_grad(xn * s + rows_b[r]);
     return rstd * (dz * s - m1 - xn * m2);
   };
+  // dx over the 16-byte units [u0, u1) of the tile, in place of x: a unit's
+  // row coefficients read once (it spans at most two rows, as Tn >= V)
+  const auto dx_units = [&](int u0, int u1) {
+    for (int u = u0 + threadIdx.x; u < u1; u += kThreads) {
+      const int r = row_of(u * V, Tn, inv_tn);
+      const int t = u * V - r * Tn;
+      const float s0 = rows_s[r], s1 = rows_s[r + 1];  // r + 1 <= rpt: in bounds
+      float b0 = 0.f, b1 = 0.f;
+      if (!have_dz) b0 = rows_b[r], b1 = rows_b[min(r + 1, rpt - 1)];
+      const uint4 xi = reinterpret_cast<const uint4*>(xt)[u];
+      const uint4 gi = reinterpret_cast<const uint4*>(gt)[u];
+      const T* xe = reinterpret_cast<const T*>(&xi);
+      const T* ge = reinterpret_cast<const T*>(&gi);
+      uint4 res;
+      T* o = reinterpret_cast<T*>(&res);
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const bool next = t + q >= Tn;
+        const float s = next ? s1 : s0;
+        const float xn = (to_f32(xe[q]) - mean) * rstd;
+        float dz = 0.f;
+        if ((next ? t + q - Tn : t + q) < valid) {
+          const float gv = to_f32(ge[q]);
+          dz = have_dz ? gv : gv * mish_grad(xn * s + (next ? b1 : b0));
+        }
+        o[q] = from_f32<T>(rstd * (dz * s - m1 - xn * m2));
+      }
+      reinterpret_cast<uint4*>(xt)[u] = res;
+    }
+  };
   for (int k = own.ntiles - 1; k >= 0; --k) {
     const int ra = own.r0 + k * rpt;
     const int rb = min(ra + rpt, own.r1);
     const int len = (rb - ra) * Tn;
-    if (k != own.ntiles - 1) {
+    const bool reload = k != own.ntiles - 1;
+    if (reload) {
       have_dz = false;
-      if (kVec && threadIdx.x == 0) bulk_store_wait();
+      if (kVec && threadIdx.x == 0) bulk_store_wait();  // the stores have read the tile
       __syncthreads();
       load(ra, len);
     }
@@ -636,8 +795,19 @@ gn_mish_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
     __syncthreads();
     T* out = dx + base + static_cast<size_t>(ra) * Tn;
     if constexpr (kVec) {
-      compute_and_store(smem, reinterpret_cast<unsigned char*>(out), len / V,
-                        [&](int u0, int u1) { map_units(xt, gt, xt, u0, u1, Tn, dx_of); });
+      const int units = len / V;
+#pragma unroll 1
+      for (int p = 0; p < kBwdParts; ++p) {
+        const int u0 = bwd_part(units, p), u1 = bwd_part(units, p + 1);
+        if (reload) mbar_wait(&s_bar[p], parity);
+        dx_units(u0, u1);
+        proxy_fence();
+        __syncthreads();
+        if (threadIdx.x == 0)
+          bulk_store(reinterpret_cast<unsigned char*>(out) + 16 * u0,
+                     reinterpret_cast<unsigned char*>(xt) + 16 * u0, 16u * (u1 - u0));
+      }
+      if (reload) parity ^= 1;
     } else {
       map_elems(xt, gt, out, len, Tn, dx_of);
     }

@@ -7,11 +7,16 @@ Modes (``use_custom``, reference config.py:154-158):
   1 -- custom face image (``test_faceimg``) + sentences from ``test_txt``
   2 -- the LRS2 test split (``lrs2_path/test``) with a fixed face, then the
        ``test_txt`` sentences; without the split only the sentences run
-  other -- needs the packed dataset, which the port does not read yet
+  other -- the face of the first clip of the packed test split (else the
+       val split) under ``packed_data_dir`` + the ``test_txt`` sentences,
+       written as ``{FACE_TAG}_sample_{i}.wav``; without a packed split,
+       with a warning, the face of ``test_faceimg``
 
 Weights come from random initialisation (seed 0, as the root entry point
 without checkpoints); the run goes through the whole pipeline on the GPU
-(``device=cpu`` runs it on the CPU).
+(``device=cpu`` runs it on the CPU).  Loading weights is not ported yet
+(ROADMAP item 9): ``resume_from=`` and ``vocoder_ckpt=`` raise, before any
+model is built, rather than synthesise from random weights.
 """
 
 import os
@@ -20,14 +25,20 @@ import sys
 from facegantts_tpu_torch.config import default_config, parse_cli_overrides
 
 
+# the keys that name weight files, which the port does not load yet
+_WEIGHT_KEYS = ("resume_from", "vocoder_ckpt")
+
+
 def main(argv=None):
     overrides = parse_cli_overrides(argv if argv is not None else sys.argv[1:])
     device = overrides.pop("device", None)
     cfg = default_config(overrides=overrides)
-    if cfg.use_custom not in (1, 2):
-        raise SystemExit(
-            f"use_custom={cfg.use_custom}: the dataset-face mode needs the packed "
-            "dataset, which the PyTorch port does not read yet; use 1 or 2")
+    for key in _WEIGHT_KEYS:
+        if getattr(cfg, key):
+            raise NotImplementedError(
+                f"{key}={getattr(cfg, key)!r}: the PyTorch port does not load weight files "
+                "yet (ROADMAP item 9); without it inference would run from "
+                "random weights")
 
     from facegantts_tpu_torch.synthesis import Synthesizer, load_face
     from facegantts_tpu_torch.text.cmudict import default_cmudict
@@ -59,12 +70,28 @@ def main(argv=None):
         else:
             print(f"[WARN] {test_dir} not found; falling back to test_txt sentences")
 
+    # mode "other": the face of the first packed clip (JAX inference.py:72-83)
+    face = None
+    if cfg.use_custom not in (1, 2):
+        from facegantts_tpu_torch.data.dataset import load_packed
+
+        ds = load_packed(cfg, "test") or load_packed(cfg, "val")
+        if ds is not None and len(ds):
+            face = ds[0]["spk"]  # (224, 224, 3) float32 BGR 0..255
+            print("######## Using the first dataset clip's face")
+        else:
+            print("[WARN] no packed dataset for a dataset face; falling back to test_faceimg")
+    if face is None:
+        face = load_face(cfg.test_faceimg, cfg.image_size)
     if os.path.exists(cfg.test_txt):
         with open(cfg.test_txt) as f:
             texts = [ln.strip() for ln in f if ln.strip()]
         tag = os.environ.get("FACE_TAG", "face")
-        for out in synth.synthesize_file(texts, cfg.test_faceimg, out_dir, tag):
-            print(f"Saved  ->  {out}")
+        for i, text in enumerate(texts):
+            wav, _ = synth.synthesize(text, face)
+            out = os.path.join(out_dir, f"{tag}_sample_{i}.wav")
+            save_wav(out, wav, cfg.sample_rate)
+            print(f"Saved  ->  {out}  ({len(wav) / cfg.sample_rate:.2f}s)")
     print(f"######## Done inference. Check '{out_dir}' folder")
 
 

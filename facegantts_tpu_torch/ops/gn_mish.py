@@ -14,11 +14,14 @@ at ~20-30 flops an element -- far below the card's ridge.  In NCHW each
 thread-block clusters, one cluster per slab: the blocks split the slab's
 rows, keep them in shared memory, exchange their partial sums through
 distributed shared memory and write the result from shared memory, so x
-crosses device memory once.  A slab too large for the cluster's shared
-memory streams in tiles, the second read coming from L2.  Both take every
-shape with ``C % G == 0`` in f32 and bf16.  The TPU kernel's lane packing,
-parity rows and group-indicator matmul exist only for the TPU's 128-lane
-layout and have no counterpart here.
+crosses device memory once (the backward: x and the upstream gradient,
+reduced per channel part by part as they land).  A slab too large for the
+cluster's shared memory at two blocks an SM streams in tiles, the second
+read coming from L2 where it holds it; keeping such a slab whole at one
+block an SM measured slower on an H100 (``chip_smoke.py`` phase 11 times
+both).  Both take every shape with ``C % G == 0`` in f32 and bf16.  The TPU
+kernel's lane packing, parity rows and group-indicator matmul exist only
+for the TPU's 128-lane layout and have no counterpart here.
 
 The gradient: the forward saves x, scale, bias, lens and the per-(b, g) mean
 and rstd; the backward computes the closed form (``gn_mish_mask_bwd``)::
@@ -167,6 +170,23 @@ class _Plan:
         return other
 
 
+_BWD_PARTS = 2  # the backward's load parts a tile (csrc/gn_mish.cu kBwdParts)
+_WARPS = 16  # warps a block (csrc/gn_mish.cu kWarps)
+
+
+def _smem_bytes(shape, num_groups: int, elem: int, bwd: bool, rpb: int, rpt: int) -> int:
+    """Dynamic shared memory of a block (csrc/gn_mish.cu's layout): the
+    tiles (x, and g backward, each rounded to 16 bytes), each row's two
+    coefficients (floats) and, backward, the block's channel sums and a
+    tile's slice partials, one slice a warp a part (a float2 each)."""
+    _, c, f, t = shape
+    cg = c // num_groups
+    smem = (2 if bwd else 1) * (-(-rpt * t * elem // 16) * 16) + 8 * rpt
+    if bwd:
+        smem += 8 * (min(cg, rpb // f + 2) + min(cg, rpt // f + 2) + _BWD_PARTS * _WARPS)
+    return smem
+
+
 def _make_plan(lib, shape, num_groups: int, elem: int, bwd: bool, sms: int) -> _Plan:
     """A cluster of up to 16 blocks per (b, g) slab, enough blocks to fill
     the card twice and each block's rows within _TILE_BYTES; beyond that
@@ -189,11 +209,7 @@ def _make_plan(lib, shape, num_groups: int, elem: int, bwd: bool, sms: int) -> _
         rpb = -(-rows // cluster)
         rpb = -(-rpb // q) * q
         rpt = min(rpb, max(q, _TILE_BYTES // row_bytes // q * q))
-        # the tiles, each row's two coefficients (floats) and, backward, the
-        # row sums and channel sums (a float2 each): csrc/gn_mish.cu's layout
-        smem = nbuf * (-(-rpt * t * elem // 16) * 16) + 8 * rpt
-        if bwd:
-            smem += 8 * (rpb + min(cg, rpb // f + 2))
+        smem = _smem_bytes(shape, num_groups, elem, bwd, rpb, rpt)
         if smem > _MAX_SMEM:
             raise ValueError(f"gn_mish_mask: unsupported shape {tuple(shape)}")
         fits = ctypes.c_int(0)

@@ -35,7 +35,7 @@ P2_SHAPE = (256, 8, 128)  # (T_y, B, T_x), the Pallas probe's default
 
 _P = ctypes.c_void_p
 # fgt_probe_trivial_f32(x, y, n, stream); fgt_probe_dp_loop_f32(v, out, T_y, B, T_x,
-# threads, stream)
+# rows a lane, stream)
 P1_ARGTYPES = (_P, _P, ctypes.c_longlong, _P)
 P2_ARGTYPES = (_P, _P) + (ctypes.c_int,) * 4 + (_P,)
 _p1 = None  # the C entries, resolved at their first launch
@@ -106,8 +106,18 @@ def probe_dp_loop_ref(v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def dp_rows_per_lane(t_x: int) -> int:
+    """Rows of the carry each of a warp's 32 lanes keeps in P2's kernel:
+    ceil(T_x / 32) rounded up to a power of two (csrc/probe.cu)."""
+    rows = 1
+    while 32 * rows < t_x:
+        rows *= 2
+    return rows
+
+
 def probe_dp_loop(v: torch.Tensor) -> torch.Tensor:
-    """P2 (kernel on a CUDA tensor, plain version on a CPU one); T_x <= 1024."""
+    """P2 (kernel on a CUDA tensor, plain version on a CPU one); T_x <= 1024.
+    One warp per batch item, the carry in registers (csrc/probe.cu)."""
     if v.device.type == "cpu":
         return probe_dp_loop_ref(v)
     _check_cuda(P2_NAME, v, 3)
@@ -116,8 +126,7 @@ def probe_dp_loop(v: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{P2_NAME}: T_x={t_x} > 1024")
     out = torch.empty_like(v)
     err = (_p2 or _resolve_p2())(v.data_ptr(), out.data_ptr(), t_y, b, t_x,
-                                 max(32, -(-t_x // 32) * 32),
-                                 torch._C._cuda_getCurrentRawStream(v.get_device()))
+                                 dp_rows_per_lane(t_x), _raw_stream(v.get_device()))
     if err != 0:
         raise RuntimeError(f"{P2_NAME}: CUDA kernel launch failed (cudaError {err})")
     kernels.LAUNCHES[P2_NAME] += 1

@@ -177,5 +177,81 @@ def test_inference_cli_cpu(tmp_path):
     ]
     inference.main(args)
     assert sorted(os.listdir(tmp_path)) == ["face_sample_0.wav", "face_sample_1.wav"]
-    with pytest.raises(SystemExit, match="packed dataset"):
-        inference.main(args[:-4] + ["use_custom=0"])
+
+
+def _cli_args(out_dir, **extra):
+    return [f"{k}={v}" for k, v in TINY.items()] + [
+        "device=cpu", f"output_dir={out_dir}",
+        f"test_txt={os.path.join(ROOT, 'test', 'text.txt')}",
+        f"test_faceimg={os.path.join(ROOT, 'test', 'face.png')}",
+    ] + [f"{k}={v}" for k, v in extra.items()]
+
+
+@pytest.mark.parametrize("key", ["resume_from", "vocoder_ckpt"])
+def test_inference_cli_refuses_weight_files(tmp_path, key):
+    """A weight file the port cannot load yet raises by name before any
+    model is built, rather than synthesising from random weights."""
+    from facegantts_tpu_torch import inference
+
+    out_dir = tmp_path / "out"
+    with pytest.raises(NotImplementedError, match=key):
+        inference.main(_cli_args(out_dir, use_custom=1, **{key: str(tmp_path / "w.pt")}))
+    assert not out_dir.exists()
+
+
+def _recording_faces(monkeypatch):
+    """Record the face of every Synthesizer.synthesize call."""
+    from facegantts_tpu_torch.synthesis import Synthesizer
+
+    faces, orig = [], Synthesizer.synthesize
+
+    def synthesize(self, text, face, *a, **k):
+        faces.append(np.array(face, copy=True))
+        return orig(self, text, face, *a, **k)
+
+    monkeypatch.setattr(Synthesizer, "synthesize", synthesize)
+    return faces
+
+
+def test_inference_cli_other_mode_packed_face(tmp_path, monkeypatch, capsys):
+    """Mode "other" (JAX inference.py:72-83): the face of the first clip of
+    the packed test split, the test_txt sentences as {tag}_sample_{i}.wav;
+    the split written by the JAX package's preprocessing (_flush)."""
+    from facegantts_tpu.config import default_config as jax_config
+    from facegantts_tpu.data.preprocess import _flush
+    from facegantts_tpu_torch import inference
+    from facegantts_tpu_torch.data.dataset import load_packed
+
+    rng = np.random.default_rng(0)
+    packed = tmp_path / "packed"
+    packed.mkdir()
+    shard = {"text": [rng.integers(1, 148, 9).astype(np.int32) for _ in range(2)],
+             "mel": [rng.standard_normal((80, 12)).astype(np.float16) for _ in range(2)],
+             "faces": [rng.integers(0, 255, (224, 224, 3)).astype(np.uint8) for _ in range(2)],
+             "spk": [3, 4]}
+    _flush(jax_config(env={}).replace(packed_data_dir=str(packed), n_mels=80), "test", shard, 0)
+    faces = _recording_faces(monkeypatch)
+    out_dir = tmp_path / "out"
+    inference.main(_cli_args(out_dir, use_custom=0, packed_data_dir=packed, n_mels=80))
+    assert sorted(os.listdir(out_dir)) == ["face_sample_0.wav", "face_sample_1.wav"]
+    assert "first dataset clip's face" in capsys.readouterr().out
+    want = load_packed(default_config(env={}, overrides=dict(packed_data_dir=str(packed),
+                                                             n_mels="80")), "test")[0]["spk"]
+    np.testing.assert_array_equal(want, shard["faces"][0].astype(np.float32))
+    assert len(faces) == 2 and all(np.array_equal(f, want) for f in faces)
+
+
+def test_inference_cli_other_mode_falls_back_to_face_image(tmp_path, monkeypatch, capsys):
+    """Mode "other" without a packed test or val split warns and takes the
+    face of test_faceimg."""
+    from facegantts_tpu_torch import inference
+    from facegantts_tpu_torch.synthesis import load_face
+
+    faces = _recording_faces(monkeypatch)
+    out_dir = tmp_path / "out"
+    (tmp_path / "empty").mkdir()
+    inference.main(_cli_args(out_dir, use_custom=0, packed_data_dir=tmp_path / "empty"))
+    assert sorted(os.listdir(out_dir)) == ["face_sample_0.wav", "face_sample_1.wav"]
+    assert "[WARN] no packed dataset" in capsys.readouterr().out
+    want = load_face(os.path.join(ROOT, "test", "face.png"))
+    assert len(faces) == 2 and all(np.array_equal(f, want) for f in faces)

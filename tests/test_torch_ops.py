@@ -296,6 +296,29 @@ def test_gn_mish_launch_plan(shape, elem, bwd):
         assert plan.cluster == 16 and (plan.rpt < plan.rpb) == (elem == 4 or bwd)
 
 
+# The backward's shapes in a GAN step (B=16, 436 and 872 frames) and a plain
+# step (B=64, the 128-frame crop), f32
+K1_BWD_SHAPES = [(16, 64, 128, 436), (16, 128, 64, 218), (16, 64, 64, 218), (16, 256, 32, 109),
+                 (16, 128, 32, 109), (16, 64, 128, 872), (64, 64, 128, 128), (64, 128, 64, 64),
+                 (64, 64, 64, 64), (64, 256, 32, 32), (64, 128, 32, 32)]
+
+
+@pytest.mark.parametrize("shape", K1_BWD_SHAPES)
+def test_gn_mish_bwd_plan(shape):
+    """The backward keeps every block's rows of x and g whole in shared
+    memory (one tile, so both cross device memory once) wherever they fit
+    two blocks an SM: all these shapes but the full-resolution GAN slab,
+    whose 3.57 MB (436 frames) and 7.1 MB (872) stream in tiles; the
+    shared memory is the kernel's layout, slice partials included."""
+    b, c, f, t = shape
+    plan = tgn._make_plan(_EveryClusterFits, shape, 8, 4, True, 132)
+    assert plan.cluster * plan.rpb >= c // 8 * f and plan.smem <= tgn._MAX_SMEM and plan.vec
+    assert (plan.rpt < plan.rpb) == (c == 64 and f == 128 and t in (436, 872))
+    assert plan.smem == tgn._smem_bytes(shape, 8, 4, True, plan.rpb, plan.rpt)
+    # two blocks an SM: 228 KB of shared memory, 1 KB of it reserved a block
+    assert 2 * (plan.smem + 1024) <= 228 * 1024
+
+
 def _bwd_check(shape, dtype, seed):
     """Backward kernel vs gn_mish_mask_bwd_ref and vs autograd of
     gn_mish_mask_ref on the card; returns the launches it made."""
@@ -357,6 +380,72 @@ def test_gn_mish_cuda_kernel_streams_large_slab(dtype):
     want = tgn.gn_mish_mask_ref(x, scale, bias, lens).float()
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= (1e-4 if dtype == "float32" else 0.05)
+
+
+def _bwd_kernel_check(shape, dtype, lens, seed, offset=False):
+    """The backward kernel alone (``gn_mish_mask_bwd``) against its plain
+    version on the card, one launch; x and g optionally views at an odd
+    offset (element copies).  Bar: f32 1e-4 of the largest value (sums in
+    another order); bf16 1e-2 (dx rounded to bf16 once, 2^-8 relative)."""
+    b, c, f, t = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def tensor(scale_, shift):
+        v = (torch.randn(shape, generator=gen, device="cuda") * scale_ + shift).to(dtype)
+        if not offset:
+            return v
+        view = torch.empty(v.numel() + 1, dtype=dtype, device="cuda")[1:].view(shape)
+        return view.copy_(v)
+
+    x, g = tensor(2.0, 0.5), tensor(1.0, 0.0)
+    scale = torch.randn(c, generator=gen, device="cuda") * 6
+    bias = torch.randn(c, generator=gen, device="cuda") * 8
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    stats = tgn.group_stats(x)
+    before = kernels.LAUNCHES[tgn.BWD_NAME]
+    got = tgn.gn_mish_mask_bwd(g, x, scale, bias, lens, stats)
+    assert kernels.LAUNCHES[tgn.BWD_NAME] == before + 1
+    want = tgn.gn_mish_mask_bwd_ref(g, x, scale, bias, lens, stats)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, a, w in zip(("dx", "dscale", "dbias"), got, want):
+        a, w = a.float(), w.float()
+        assert a.shape == w.shape and torch.isfinite(a).all(), name
+        top = max(1.0, w.abs().max().item())
+        assert (a - w).abs().max().item() <= tol * top, (name, shape, dtype)
+
+
+def _ragged(b, t):
+    return [(t - 3, t, t // 2, 1)[i % 4] if t > 3 else (t, 1)[i % 2] for i in range(b)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", K1_BWD_SHAPES)
+def test_gn_mish_cuda_backward_step_shapes(shape, dtype):
+    """The backward kernel at the GAN and plain steps' shapes (the 872-frame
+    slab streams, the others stay whole in the cluster), ragged lengths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    _bwd_kernel_check(shape, getattr(torch, dtype), _ragged(shape[0], shape[3]), seed=7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gn_mish_cuda_backward_edges(dtype):
+    """The backward kernel at T of 1, 3, 32 and 109 (a 16-byte unit then
+    spans rows, or the slab is not 16-byte aligned), lengths of 0, 1 and T,
+    views at an odd offset, and the streaming 872-frame slab at batch 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dt = getattr(torch, dtype)
+    for t in (1, 3, 32, 109):
+        for shape in ((2, 16, 8, t), (3, 64, 32, t)):
+            for lens in ([0] * shape[0], [1] * shape[0], [t] * shape[0], [0, t, 1][:shape[0]]):
+                _bwd_kernel_check(shape, dt, lens, seed=t)
+            _bwd_kernel_check(shape, dt, _ragged(shape[0], t), seed=t + 1, offset=True)
+    _bwd_kernel_check((1, 64, 128, 872), dt, [800], seed=8)
+    _bwd_kernel_check((2, 64, 128, 436), dt, [0, 436], seed=9, offset=True)
 
 
 def _gan_inputs(shape, seed, dtype):
@@ -716,6 +805,54 @@ def test_probe_cuda_kernels_match_plain():
     for shape in [probe.P2_SHAPE, (40, 3, 16), (17, 2, 100)]:
         v = torch.randn(shape, generator=gen, device="cuda")
         assert torch.equal(probe.probe_dp_loop(v), probe.probe_dp_loop_ref(v))
+
+
+def _assert_same_dp(got, want):
+    """Exactly equal, NaN where the plain version has NaN."""
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.where(want.isnan(), 0.0, got), torch.where(want.isnan(), 0.0, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t_x", [1, 31, 33, 100, 128, 1024])
+def test_probe_dp_loop_cuda_shapes(t_x):
+    """P2 exactly equal to its plain version at T_x of 1 to 1024 (rows a
+    lane 1 to 32; 33 and 100 put x = T_x - 1 off a lane's last row), T_y of
+    1, 17 and 256 and B of 1 and 8 (one warp an item, four items a block),
+    each with one launch; and on a view at an odd offset (4-byte copies)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from facegantts_tpu_torch import probe
+
+    gen = torch.Generator(device="cuda").manual_seed(t_x)
+    for t_y in (1, 17, 256):
+        for b in (1, 8):
+            v = torch.randn((t_y, b, t_x), generator=gen, device="cuda")
+            before = kernels.LAUNCHES[probe.P2_NAME]
+            got = probe.probe_dp_loop(v)
+            assert kernels.LAUNCHES[probe.P2_NAME] == before + 1
+            _assert_same_dp(got, probe.probe_dp_loop_ref(v))
+    base = torch.randn(17 * 8 * t_x + 1, generator=gen, device="cuda")
+    v = base[1:].view(17, 8, t_x)
+    _assert_same_dp(probe.probe_dp_loop(v), probe.probe_dp_loop_ref(v))
+
+
+@pytest.mark.gpu
+def test_probe_dp_loop_cuda_nan():
+    """A NaN in the input spreads as torch.maximum spreads it: along its
+    row and, through the roll, to the next row (x = 0 after x = T_x - 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from facegantts_tpu_torch import probe
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for t_x, where in ((128, (3, 2, 127)), (100, (0, 0, 99)), (33, (10, 5, 7))):
+        v = torch.randn((40, 8, t_x), generator=gen, device="cuda")
+        v[where] = float("nan")
+        got, want = probe.probe_dp_loop(v), probe.probe_dp_loop_ref(v)
+        assert want.isnan().sum() > 1
+        _assert_same_dp(got, want)
 
 
 @pytest.mark.gpu
