@@ -83,6 +83,29 @@ non-zero and prints no result line):
    port's kernels): its backward and this one at the 11 backward shapes of
    the GAN and plain steps, card times in turns and device times alone,
    and the sums per U-Net evaluation.
+12. persistence and serving, from the GAN ``TrainState`` that phase 8
+   leaves (Config widths, batch 64): ``CheckpointPolicy`` saves it
+   (``save_step``, then ``save_epoch`` with a val loss; ms and bytes) and it
+   is restored into a fresh state (ms): model, discriminator, both
+   optimizers' moments and counts and the step bitwise equal; one R1 step
+   from each, same batch and draws, losses within 1e-5 relative, each 500
+   K1 forwards, 100 backwards and 4 MAS launches; ``train`` with
+   ``resume_from=<work>/last`` two steps on (logged steps, ``last/``,
+   launches); then in bf16 and f32 a Synthesizer from
+   ``restore_generator_state_dict`` and a bshall vocoder file with weight
+   norm (``load_hifigan_state_dict``) against ``update_params`` on a random
+   one (the same waveform), 250 K1 launches a request, warm latency;
+   ``stream_vocode`` of 256- and 872-frame mels against one vocoder call
+   (equal in f32, within 0.05 in bf16), time to first audio and to the whole
+   waveform; the HTTP server on 127.0.0.1 (``/health`` says gpu,
+   ``/synthesize`` equals the direct call, ``/synthesize_stream`` within 1
+   LSB (f32) or 0.05 (bf16) of it away from the last margin, latency over
+   HTTP against the direct call in turns).  bf16 runs PyTorch's defaults;
+   f32 runs with TF32 off and cuDNN's deterministic algorithms, the setting
+   in which an f32 result does not depend on the algorithm cuDNN picks for
+   a shape (with the default TF32 convolutions the f32 chunks' difference
+   from one call is printed too).  The checks of the phase are collected
+   and it fails at its end if any did.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -239,6 +262,28 @@ def host_us(fn, n=2000):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) * 1e6 / n
+
+
+class cudnn_mode:
+    """cuDNN's TF32 and deterministic switches inside the block (matmuls
+    without TF32, PyTorch's default)."""
+
+    def __init__(self, tf32: bool, deterministic: bool):
+        self.want = (tf32, deterministic)
+
+    def __enter__(self):
+        import torch
+
+        b = torch.backends
+        self.prev = b.cudnn.allow_tf32, b.cudnn.deterministic, b.cuda.matmul.allow_tf32
+        b.cudnn.allow_tf32, b.cudnn.deterministic = self.want
+        b.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        b = torch.backends
+        b.cudnn.allow_tf32, b.cudnn.deterministic, b.cuda.matmul.allow_tf32 = self.prev
 
 
 class strict_f32:
@@ -616,7 +661,325 @@ def gan_phase(work_dir):
         "peak_bytes": peak, "buckets": buckets, "n_val": n_val, "turns": turns, "peaks": peaks,
         "step_launches": step_launches, "turn_bucket": (batch.x.shape[1], batch.y.shape[2]),
         "profiles": profiles, "mas_inputs": mas_seen[0], "parts_ms": parts_ms,
+        "state": state, "batch": batch, "train_ds": train_ds, "val_ds": val_ds,
+        "n_batches": len(loader),
     }
+
+
+def _flat_state(obj, prefix=""):
+    """Every leaf of a nested state_dict, by path."""
+    if isinstance(obj, dict):
+        items = obj.items()
+    elif isinstance(obj, (list, tuple)):
+        items = enumerate(obj)
+    else:
+        return {prefix: obj}
+    out = {}
+    for k, v in items:
+        out.update(_flat_state(v, f"{prefix}{k}/"))
+    return out
+
+
+def state_mismatches(a, b):
+    """The leaves in which two TrainStates differ (bitwise for tensors)."""
+    import torch
+
+    bad = [] if a.step == b.step else ["step"]
+    for part in ("model", "optimizer", "disc", "disc_optimizer"):
+        fa, fb = (_flat_state(getattr(s_, part).state_dict()) for s_ in (a, b))
+        if fa.keys() != fb.keys():
+            bad.append(f"{part}: keys differ")
+            continue
+        for k, v in fa.items():
+            w = fb[k]
+            same = (v.dtype == w.dtype and torch.equal(v.cpu(), w.cpu())
+                    if isinstance(v, torch.Tensor) else v == w)
+            if not same:
+                bad.append(f"{part}/{k}")
+    return bad
+
+
+def _http(port, method, path, body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request(method, path, body=None if body is None else json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp, data
+
+
+def _pcm_of_wav(data):
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(data), "rb") as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def persist_phase(gan, texts, face, cmu):
+    """Phase 12: the GAN state phase 8 left saved through ``CheckpointPolicy``
+    and restored into a fresh state (bitwise), one step from each, a
+    resumed ``train()``, inference and serving from the checkpoint and a
+    bshall vocoder file, streaming against one vocoder call.  Every check is
+    collected; the phase raises at its end if any failed."""
+    import shutil
+    import threading
+
+    import torch
+
+    from facegantts_tpu_torch.config import default_config
+    from facegantts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from facegantts_tpu_torch.ops import gn_mish, kernels, mas
+    from facegantts_tpu_torch.serve import SynthesisService, make_server, wav_bytes
+    from facegantts_tpu_torch.synthesis import Synthesizer
+    from facegantts_tpu_torch.train import checkpoint as ck
+    from facegantts_tpu_torch.train.loop import train
+    from facegantts_tpu_torch.train.step import init_state, make_gan_train_step
+
+    cfg, state, batch = gan["cfg"], gan["state"], gan["batch"]
+    fails, out, launches = [], {}, collections.Counter()
+    work = os.path.join(ROOT, "runs", "chip_smoke_persist")
+    shutil.rmtree(work, ignore_errors=True)
+    step = out["step"] = state.step
+
+    def counted(fn):
+        """fn() with the counts zeroed just before and read just after."""
+        kernels.LAUNCHES.clear()
+        r = fn()
+        got = dict(kernels.LAUNCHES)
+        launches.update(got)
+        return r, got
+
+    # 1. save and restore
+    policy = ck.CheckpointPolicy(work, keep_top_k=cfg.keep_top_k, monitor=cfg.checkpoint_monitor,
+                                 snapshot_epochs=cfg.snapshot_epochs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    policy.save_step(state, step)
+    out["save_ms"] = (time.perf_counter() - t0) * 1e3
+    epoch = step // gan["n_batches"]
+    t0 = time.perf_counter()
+    policy.save_epoch(state, step, epoch, {"total_loss": gan["vals"][-1]["val/total_loss"]})
+    out["save_epoch_ms"] = (time.perf_counter() - t0) * 1e3
+    out["bytes"] = os.path.getsize(os.path.join(work, "last", str(step), ck.CKPT_FILE))
+    out["epoch_files"] = sorted(os.path.relpath(os.path.join(d, f), work)
+                                for d, _, fs in os.walk(work) for f in fs)
+    fresh = init_state(cfg, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.restore_checkpoint(os.path.join(work, "last"), fresh)
+    torch.cuda.synchronize()
+    out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    bad = state_mismatches(state, fresh)
+    out["restore_bitwise"] = not bad
+    if bad:
+        fails.append(f"restore not bitwise: {bad[:8]}")
+
+    # 2. one step from each state, the same batch and draws
+    train_step, _ = make_gan_train_step(cfg, "cuda")
+    metrics, step_ms = {}, {}
+    for tag, st in (("saved", state), ("restored", fresh)):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        torch.manual_seed(11)  # dropout
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (_, m), got = counted(lambda: train_step(st, batch, gen, use_r1=True))
+        metrics[tag] = {k: float(v) for k, v in m.items()}
+        step_ms[tag] = (time.perf_counter() - t0) * 1e3
+        want = {gn_mish.BWD_NAME: 100, mas.NAME: 4, gn_mish.NAME: 500}
+        if any(got.get(k, 0) != n for k, n in want.items()):
+            fails.append(f"one step from the {tag} state launched {got}, want {want}")
+    rel = {k: abs(v - metrics["restored"][k]) / max(abs(v), abs(metrics["restored"][k]), 1e-30)
+           for k, v in metrics["saved"].items()}
+    out["step_rel"], out["step_ms"], out["step_metrics"] = rel, step_ms, metrics
+    if max(rel.values()) > 1e-5:
+        fails.append(f"one step: losses differ by more than 1e-5 relative: {rel}")
+    out["param_diff"] = max(float((p.detach() - q.detach()).abs().max()) for p, q in zip(
+        state.model.parameters(), fresh.model.parameters()))
+    del fresh, train_step
+
+    # 3. resume through train()
+    t0 = time.perf_counter()
+    resumed, got = counted(lambda: train(cfg.replace(resume_from=os.path.join(work, "last")),
+                                         work, step + 2, gan["train_ds"], gan["val_ds"],
+                                         device="cuda"))
+    out["resume_wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    logged = [r for r in recs if "train/g_loss" in r]
+    n_val = sum(int(r["val/batches"]) for r in recs if "val/batches" in r)
+    out["resume_steps"] = [r["step"] for r in logged]
+    out["resume_step_ms"] = [1e3 / r["train/steps_per_sec"] for r in logged]
+    out["resume_launches"] = got
+    if resumed.step != step + 2 or out["resume_steps"] != [step + 1, step + 2]:
+        fails.append(f"resume: logged steps {out['resume_steps']}, final {resumed.step}")
+    if ck.all_steps(os.path.join(work, "last")) != [step + 2]:
+        fails.append(f"resume: last/ holds {ck.all_steps(os.path.join(work, 'last'))}")
+    want = {gn_mish.BWD_NAME: 200, mas.NAME: 8 + n_val, gn_mish.NAME: 1000 + 125 * n_val}
+    if any(got.get(k, 0) != n for k, n in want.items()):
+        fails.append(f"resume: launches {got}, want {want}")
+    del resumed
+    gan.pop("state")
+    del state
+    torch.cuda.empty_cache()
+
+    # 4. inference from the checkpoint and a bshall vocoder file
+    sd = ck.restore_generator_state_dict(os.path.join(work, "last"))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        voc = HiFiGANGenerator(in_channels=cfg.n_mels)
+    for mod in voc.modules():
+        if isinstance(mod, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
+            torch.nn.utils.weight_norm(mod)
+    voc_path = os.path.join(work, "hifigan_bshall.pt")
+    torch.save({"generator": {f"module.{k}": v for k, v in voc.state_dict().items()}}, voc_path)
+    vsd = ck.load_hifigan_state_dict(voc_path)
+    out["precisions"] = {}
+    def one_precision(bf16):
+        """Steps 4-6 in one precision; returns what they measured."""
+        tag = "bf16" if bf16 else "f32"
+        r = {}
+        icfg = default_config(env={}, overrides=dict(fused_gn_mish=1, use_bf16=bf16, timesteps=10,
+                                                     temperature=8.0))
+        service = SynthesisService(icfg, state_dict=sd, vocoder_state_dict=vsd, cmudict=cmu,
+                                   default_face=face, device="cuda")
+        synth = service.synth
+        other = Synthesizer(icfg, cmudict=cmu, seed=0, device="cuda")
+        before, _ = other.synthesize(texts[0], face, seed=3)
+        other.update_params(sd, vsd)
+        (wav, mel), got = counted(lambda: synth.synthesize(texts[0], face, seed=3))
+        swapped, _ = other.synthesize(texts[0], face, seed=3)
+        del other
+        r["launches"] = got
+        if got.get(gn_mish.NAME, 0) != 250:
+            fails.append(f"[{tag}] a request from the checkpoint launched {got}")
+        if not np.isfinite(wav).all() or len(wav) != mel.shape[1] * icfg.hop_len:
+            fails.append(f"[{tag}] the checkpoint's waveform is not finite or not whole")
+        if not np.array_equal(wav, swapped):
+            again, _ = synth.synthesize(texts[0], face, seed=3)
+            fails.append(f"[{tag}] update_params: max |diff| {np.abs(wav - swapped).max()} "
+                         "against a Synthesizer built with the weights (that one against "
+                         f"itself: {np.abs(wav - again).max()})")
+        if len(before) == len(wav) and np.array_equal(before, wav):
+            fails.append(f"[{tag}] the loaded weights changed nothing")
+        if not bf16:  # the same request twice, in two other cuDNN settings
+            r["repeat_diff"] = {}
+            for tf32, det in ((True, False), (False, False)):
+                with cudnn_mode(tf32=tf32, deterministic=det):
+                    w1, m1 = synth.synthesize(texts[0], face, seed=3)
+                    w2, m2 = synth.synthesize(texts[0], face, seed=3)
+                r["repeat_diff"][f"tf32={tf32}"] = (float(np.abs(m1 - m2).max()),
+                                                    float(np.abs(w1 - w2).max()))
+        lat = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            synth.synthesize(texts[0], face, seed=3)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        r["direct_ms"], r["frames"] = lat, mel.shape[1]
+
+        # 5. streaming: chunks against one call, time to first audio
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        r["stream"] = {}
+        for frames in (256, 872):
+            m_ = torch.randn(icfg.n_mels, frames, generator=gen, device="cuda") - 5.0
+            with torch.inference_mode():
+                full = np.clip(synth.vocoder(m_[None].to(synth.dtype)).float()[0].cpu().numpy(),
+                               -1.0, 1.0)
+            firsts, totals, fulls, got_wav = [], [], [], None
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                it = synth.stream_vocode(m_)
+                chunks = [next(it)]
+                firsts.append((time.perf_counter() - t0) * 1e3)
+                chunks += list(it)
+                totals.append((time.perf_counter() - t0) * 1e3)
+                got_wav = np.concatenate(chunks)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    synth.vocoder(m_[None].to(synth.dtype)).float()[0].cpu().numpy()
+                fulls.append((time.perf_counter() - t0) * 1e3)
+            diff = float(np.abs(got_wav - full).max()) if len(got_wav) == len(full) else None
+            r["stream"][frames] = {"first_ms": firsts[1:], "total_ms": totals[1:],
+                                   "full_ms": fulls[1:], "chunks": len(chunks), "diff": diff}
+            if not bf16:  # the same with PyTorch's default TF32 convolutions
+                with cudnn_mode(tf32=True, deterministic=False), torch.inference_mode():
+                    full_d = synth.vocoder(m_[None]).float()[0].cpu().numpy().clip(-1.0, 1.0)
+                    got_d = np.concatenate(list(synth.stream_vocode(m_)))
+                r["stream"][frames]["diff_tf32"] = float(np.abs(got_d - full_d).max())
+            bar = 0.0 if tag == "f32" else 0.05
+            if diff is None or diff > bar:
+                fails.append(f"[{tag}] stream_vocode at {frames} frames: max |diff| {diff} "
+                             f"against one call (bar {bar})")
+
+        # 6. serving: HTTP against the direct call
+        srv = make_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        port = srv.server_address[1]
+        try:
+            resp, data = _http(port, "GET", "/health")
+            health = r["health"] = json.loads(data)
+            if health.get("platform") != "gpu" or health.get("device") != \
+                    torch.cuda.get_device_name(0):
+                fails.append(f"[{tag}] /health says {health}")
+            body = {"text": texts[0], "seed": 3}
+            (resp, data), got = counted(lambda: _http(port, "POST", "/synthesize", body))
+            direct, _ = synth.synthesize(texts[0], service.default_face, seed=3)
+            if resp.status != 200 or data != wav_bytes(direct, icfg.sample_rate):
+                fails.append(f"[{tag}] /synthesize ({resp.status}) differs from the direct call")
+            if got.get(gn_mish.NAME, 0) != 250:
+                fails.append(f"[{tag}] a served request launched {got}")
+            r["served_launches"] = got
+            ref = _pcm_of_wav(data)
+            resp, sdata = _http(port, "POST", "/synthesize_stream", body)
+            streamed = np.frombuffer(sdata, "<i2")
+            tail = synth.vocoder.margin_frames() * icfg.hop_len
+            lsb = (int(np.abs(streamed[:-tail].astype(np.int32) - ref[:-tail]).max())
+                   if len(streamed) == len(ref) else None)
+            r["stream_lsb"] = lsb
+            bar = 1 if tag == "f32" else int(0.05 * 32767)
+            if resp.status != 200 or resp.getheader("X-Sample-Rate") != str(icfg.sample_rate) \
+                    or lsb is None or lsb > bar:
+                fails.append(f"[{tag}] /synthesize_stream: status {resp.status}, {len(streamed)} "
+                             f"samples for {len(ref)}, max |diff| {lsb} LSB (bar {bar}) away "
+                             f"from the last {tail} samples")
+            http_ms, direct_ms = [], []
+            for i in range(10):  # in turns: http, direct, direct, http, ...
+                for kind in (("http", "direct") if i % 2 == 0 else ("direct", "http")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if kind == "http":
+                        _http(port, "POST", "/synthesize", body)
+                    else:
+                        wav_bytes(synth.synthesize(texts[0], service.default_face, seed=3)[0],
+                                  icfg.sample_rate)
+                    (http_ms if kind == "http" else direct_ms).append(
+                        (time.perf_counter() - t0) * 1e3)
+            r["http_ms"], r["http_direct_ms"] = http_ms, direct_ms
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            service.close()
+            thread.join(timeout=60)
+        del service, synth
+        torch.cuda.empty_cache()
+        return r
+
+    for bf16 in (1, 0):
+        # f32 is held exactly: TF32 off and cuDNN's deterministic algorithms,
+        # the one setting in which an f32 result does not depend on which
+        # algorithm cuDNN picks for a shape; bf16 runs PyTorch's defaults
+        with cudnn_mode(tf32=bool(bf16), deterministic=not bf16):
+            out["precisions"]["bf16" if bf16 else "f32"] = one_precision(bf16)
+    out["launches"] = launches
+    out["fails"] = fails
+    return out
 
 
 def mas_inputs(shape, gen):
@@ -1604,6 +1967,48 @@ def main(argv=None) -> int:
                 f"{tot['old_ms']:.3f} ms, new {tot['new_ms']:.3f} ms; device only earlier "
                 f"{dev['old_dev_us']} ms, new {dev['new_dev_us']} ms")
 
+    # ---- 12. persistence and serving from phase 8's GAN state ----------------------
+    per = persist_phase(gan, texts, face, cmu)
+    log(f"[persist] {smi}: GAN state at step {per['step']} (batch {cfg_g.per_gpu_batchsize}, Config widths): save_step {per['save_ms']:.1f} ms, "
+        f"save_epoch (top-k + best) {per['save_epoch_ms']:.1f} ms, {per['bytes']} bytes a "
+        f"checkpoint ({per['bytes'] / 2**20:.1f} MiB); restore into a fresh state "
+        f"{per['restore_ms']:.1f} ms; bitwise equal: {per['restore_bitwise']}; files "
+        f"{per['epoch_files']}")
+    log(f"[persist] {smi}: one R1 step from the saved and from the restored state: "
+        f"{per['step_ms']['saved']:.1f} / {per['step_ms']['restored']:.1f} ms; largest relative "
+        f"metric difference {max(per['step_rel'].values()):.3e} "
+        f"({max(per['step_rel'], key=per['step_rel'].get)}); parameters after the step differ "
+        f"by at most {per['param_diff']:.3e}; g_loss {per['step_metrics']['saved']['g_loss']:.6f}"
+        f" / {per['step_metrics']['restored']['g_loss']:.6f}")
+    log(f"[persist] {smi}: train(resume_from=last) logged steps {per['resume_steps']}, step "
+        f"times {[round(v, 1) for v in per['resume_step_ms']]} ms (phase 8's loop: "
+        f"{[round(v, 1) for v in gan['step_ms']]} ms), {per['resume_wall_s']:.1f} s with set-up "
+        f"and validation; launches {per['resume_launches']}")
+    for tag, r in per["precisions"].items():
+        log(f"[serve {tag}] {smi}: request from the checkpoint ({r['frames']} frames): direct "
+            f"warm {statistics.median(r['direct_ms']):.1f} ms (all "
+            f"{[round(v, 1) for v in r['direct_ms']]}), launches {r['launches']}")
+        if "repeat_diff" in r:
+            log(f"[serve {tag}] {smi}: one request twice, max |difference| of (mel, waveform), "
+                f"deterministic cuDNN off: " + ", ".join(
+                    f"{k} {v}" for k, v in r["repeat_diff"].items()))
+        for frames, st in r["stream"].items():
+            log(f"[serve {tag}] {smi}: stream_vocode of {frames} frames ({st['chunks']} chunks "
+                f"of 64): first audio {statistics.median(st['first_ms']):.1f} ms, whole "
+                f"{statistics.median(st['total_ms']):.1f} ms; one full-mel vocoder call "
+                f"{statistics.median(st['full_ms']):.1f} ms; max |chunks - one call| {st['diff']}"
+                + (f" (TF32 off, deterministic cuDNN; with PyTorch's default TF32 convolutions "
+                   f"{st['diff_tf32']:.3e})" if "diff_tf32" in st else ""))
+        log(f"[serve {tag}] {smi}: /health {r['health']}; over HTTP "
+            f"{statistics.median(r['http_ms']):.1f} ms against direct + wav "
+            f"{statistics.median(r['http_direct_ms']):.1f} ms (medians of 10 in turns; "
+            f"{[round(v, 1) for v in r['http_ms']]} / "
+            f"{[round(v, 1) for v in r['http_direct_ms']]}); /synthesize_stream within "
+            f"{r['stream_lsb']} LSB of /synthesize; served launches {r['served_launches']}")
+    log(f"[persist] launches over the phase: {dict(per['launches'])}")
+    if per["fails"]:
+        raise AssertionError("[persist] " + "; ".join(per["fails"]))
+
     # ---- lines -----------------------------------------------------------------
     f32 = per_eval[(436, torch.float32)]
     k1_err = max(r["err"] for (s, dt), r in results.items() if dt == torch.float32)
@@ -1613,11 +2018,13 @@ def main(argv=None) -> int:
     log(f"[lines] kernels line: {gn_mish.NAME} times are one U-Net evaluation's {K1_PER_EVAL} "
         f"K1 launches at Ty=436, B=1, f32 (per-shape lines above), max_abs_err over every f32 "
         f"shape, launches on the inference ({path_launches[gn_mish.NAME]}), training "
-        f"({tr['launches'][gn_mish.NAME]}) and GAN ({gan['launches'][gn_mish.NAME]}) paths; "
+        f"({tr['launches'][gn_mish.NAME]}), GAN ({gan['launches'][gn_mish.NAME]}) and "
+        f"persistence and serving ({per['launches'][gn_mish.NAME]}) paths; "
         f"{gn_mish.BWD_NAME} times are one training "
         f"evaluation's {K1_PER_EVAL} backward launches (B=64), max_abs_err against "
-        f"gn_mish_mask_bwd_ref, launches on the training and GAN paths; {mas_mod.NAME} at "
-        f"{MAS_SHAPES[-1]}, launches on the training and GAN paths; {gnorm.NAME} summed over the "
+        f"gn_mish_mask_bwd_ref, launches on the training, GAN and resumed-GAN paths; "
+        f"{mas_mod.NAME} at {MAS_SHAPES[-1]}, launches on the training, GAN and resumed-GAN "
+        f"paths; {gnorm.NAME} summed over the "
         f"{len(K1_TRAIN)} "
         f"training U-Net shapes, launches in the FusedGroupNorm run; probes at their shapes, "
         f"launches in the probe run")
@@ -1633,16 +2040,18 @@ def main(argv=None) -> int:
     log(json.dumps({"kernels": [
         entry(gn_mish.NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:119",
               path_launches[gn_mish.NAME] + tr["launches"][gn_mish.NAME]
-              + gan["launches"][gn_mish.NAME],
+              + gan["launches"][gn_mish.NAME] + per["launches"][gn_mish.NAME],
               dict(f32, bound_by=k1_by), k1_err),
         entry(gn_mish.BWD_NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:262",
-              tr["launches"][gn_mish.BWD_NAME] + gan["launches"][gn_mish.BWD_NAME],
+              tr["launches"][gn_mish.BWD_NAME] + gan["launches"][gn_mish.BWD_NAME]
+              + per["launches"][gn_mish.BWD_NAME],
               dict(bwd_only, library_ms=None, bound_by=(
                   collections.Counter(checks[("k1_bwd", s)]["bwd"]["bound_by"]
                                       for s, _ in K1_TRAIN).most_common(1)[0][0])),
               max(checks[("k1_bwd", s)]["bwd_abs_err"] for s, _ in K1_TRAIN)),
         entry(mas_mod.NAME, "csrc/mas.cu", "facegantts_tpu/ops/mas.py:38",
-              tr["launches"][mas_mod.NAME] + gan["launches"][mas_mod.NAME], mas_big, 0.0),
+              tr["launches"][mas_mod.NAME] + gan["launches"][mas_mod.NAME]
+              + per["launches"][mas_mod.NAME], mas_big, 0.0),
         entry(gnorm.NAME, "csrc/groupnorm.cu", "facegantts_tpu/ops/groupnorm.py:72",
               gn_launches[gnorm.NAME], dict(k2, bound_by=collections.Counter(
                   checks[("k2", s)]["bound_by"] for s, _ in K1_TRAIN).most_common(1)[0][0]),

@@ -2,7 +2,9 @@
 
 A port of the JAX package ``facegantts_tpu`` to PyTorch on NVIDIA GPUs,
 slice by slice; this package holds the inference slice (text + face ->
-16 kHz waveform) and the plain (no-GAN) training slice (``train/``).
+16 kHz waveform), the plain and GAN training slices (``train/``), and
+checkpoints, streaming and the HTTP server (``train/checkpoint.py``,
+``serve.py``).
 Module paths mirror the JAX package.  Plain tensor code is PyTorch; the JAX
 package's Pallas TPU kernels become hand-written CUDA kernels (``csrc/``),
 each beside its plain torch version.  The package imports neither JAX nor

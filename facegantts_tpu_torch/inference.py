@@ -12,11 +12,13 @@ Modes (``use_custom``, reference config.py:154-158):
        written as ``{FACE_TAG}_sample_{i}.wav``; without a packed split,
        with a warning, the face of ``test_faceimg``
 
-Weights come from random initialisation (seed 0, as the root entry point
-without checkpoints); the run goes through the whole pipeline on the GPU
-(``device=cpu`` runs it on the CPU).  Loading weights is not ported yet
-(ROADMAP item 9): ``resume_from=`` and ``vocoder_ckpt=`` raise, before any
-model is built, rather than synthesise from random weights.
+Weights: ``resume_from=`` a port checkpoint directory (its newest step) or
+a reference FaceTTS ``.pt``/``.ckpt`` (GAN keys stripped, loaded by name and
+shape into a model initialised from seed 0), ``vocoder_ckpt=`` a bshall
+HiFi-GAN-16k file (weight norm folded); without them both models keep their
+random initialisation from seed 0.  A path that does not exist raises.  The
+run goes through the whole pipeline on the GPU (``device=cpu`` runs it on
+the CPU).
 """
 
 import os
@@ -25,26 +27,33 @@ import sys
 from facegantts_tpu_torch.config import default_config, parse_cli_overrides
 
 
-# the keys that name weight files, which the port does not load yet
-_WEIGHT_KEYS = ("resume_from", "vocoder_ckpt")
+def load_weights(cfg):
+    """(generator state_dict, vocoder state_dict) that ``resume_from`` and
+    ``vocoder_ckpt`` name, each None when its key is empty."""
+    from facegantts_tpu_torch.train import checkpoint as ck
+
+    state_dict = vocoder_state_dict = None
+    if cfg.resume_from:
+        print(f"######## Loading checkpoint from {cfg.resume_from}")
+        state_dict = ck.generator_state_dict(cfg, cfg.resume_from)
+    if cfg.vocoder_ckpt:
+        vocoder_state_dict = ck.load_hifigan_state_dict(cfg.vocoder_ckpt)
+    return state_dict, vocoder_state_dict
 
 
 def main(argv=None):
     overrides = parse_cli_overrides(argv if argv is not None else sys.argv[1:])
     device = overrides.pop("device", None)
     cfg = default_config(overrides=overrides)
-    for key in _WEIGHT_KEYS:
-        if getattr(cfg, key):
-            raise NotImplementedError(
-                f"{key}={getattr(cfg, key)!r}: the PyTorch port does not load weight files "
-                "yet (ROADMAP item 9); without it inference would run from "
-                "random weights")
 
-    from facegantts_tpu_torch.synthesis import Synthesizer, load_face
+    from facegantts_tpu_torch.synthesis import Synthesizer, load_face, resolve_device
     from facegantts_tpu_torch.text.cmudict import default_cmudict
     from facegantts_tpu_torch.utils.audio import save_wav
 
-    synth = Synthesizer(cfg, cmudict=default_cmudict(cfg.cmudict_path), device=device)
+    resolve_device(device)  # no card: raise before reading any weights
+    state_dict, vocoder_state_dict = load_weights(cfg)
+    synth = Synthesizer(cfg, state_dict=state_dict, vocoder_state_dict=vocoder_state_dict,
+                        cmudict=default_cmudict(cfg.cmudict_path), device=device)
     out_dir = cfg.output_dir
     os.makedirs(out_dir, exist_ok=True)
 

@@ -9,7 +9,9 @@ Runs on the GPU unless the caller asks for another device: with
 ``device=None`` a missing CUDA device raises, it never moves to the CPU on
 its own.  With ``cfg.use_bf16`` the diffusion decoder and the vocoder run in
 bfloat16 (the encoder and SyncNet stay f32) and the waveform is returned in
-f32, as the JAX package's ``use_bf16`` does.
+f32, as the JAX package's ``use_bf16`` does.  ``update_params`` swaps
+weights in place; ``stream_vocode`` and ``synthesize_streaming`` vocode
+window by window, the chunks concatenating to one vocoder call.
 """
 
 import hashlib
@@ -141,10 +143,10 @@ class Synthesizer:
             face, self.cfg.length_scale,
         )
 
-    def _decode_vocode(self, enc, ty: int, n_timesteps: int, temperature: float,
-                       stoc: bool, seed: int):
-        """Diffusion decode at mel bucket ``ty`` + vocoder, in ``self.dtype``;
-        returns (wav f32, mel f32, y_lengths)."""
+    def _decode(self, enc, ty: int, n_timesteps: int, temperature: float, stoc: bool,
+                seed: int):
+        """Diffusion decode at mel bucket ``ty`` in ``self.dtype``; returns
+        (mel, y_lengths)."""
         mu_x, w_ceil, x_mask, y_lengths, spk_e = enc
         mu_x, w_ceil, x_mask, spk_e = (t.to(self.dtype) for t in (mu_x, w_ceil, x_mask, spk_e))
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -152,10 +154,34 @@ class Synthesizer:
             mu_x, w_ceil, x_mask, y_lengths, spk_e, n_timesteps, ty, temperature, stoc,
             generator=gen,
         )
+        return dec, y_len
+
+    def _decode_vocode(self, enc, ty: int, n_timesteps: int, temperature: float,
+                       stoc: bool, seed: int):
+        """:meth:`_decode` + vocoder; returns (wav f32, mel f32, y_lengths)."""
+        dec, y_len = self._decode(enc, ty, n_timesteps, temperature, stoc, seed)
         wav = self.vocoder(dec)
         return wav.float(), dec.float(), y_len
 
+    def _prepare_text(self, text) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """ids, and the (1, T_x bucket) padded ids and their length."""
+        ids = self._ids(text)
+        x = np.zeros((1, pick_bucket(len(ids), self.cfg.text_buckets)), np.int32)
+        x[0, : len(ids)] = ids
+        return ids, x, np.array([len(ids)], np.int32)
+
     # -------------------------------------------------------------- public
+    def update_params(self, state_dict=None, vocoder_state_dict=None) -> None:
+        """Swap in new weights without rebuilding the Synthesizer: loaded in
+        place into the live modules, which keep their device and dtype (the
+        decoder and vocoder stay in ``self.dtype``).  The duration cache is
+        cleared: new weights predict new durations."""
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        if vocoder_state_dict is not None:
+            self.vocoder.load_state_dict(vocoder_state_dict)
+        self._ty_cache.clear()
+
     @torch.inference_mode()
     def synthesize(
         self,
@@ -175,11 +201,7 @@ class Synthesizer:
         n_timesteps = n_timesteps or cfg.timesteps
         temperature = cfg.temperature if temperature is None else temperature
 
-        ids = self._ids(text)
-        tx = pick_bucket(len(ids), cfg.text_buckets)
-        x = np.zeros((1, tx), np.int32)
-        x[0, : len(ids)] = ids
-        x_len = np.array([len(ids)], np.int32)
+        ids, x, x_len = self._prepare_text(text)
         if isinstance(face, torch.Tensor):
             face_b = face
             ent = self._face_digests.get(id(face_b))
@@ -207,6 +229,63 @@ class Synthesizer:
         out = np.clip(wav[0, : n_frames * cfg.hop_len].cpu().numpy(), -1.0, 1.0)
         mel = dec[0, :, :n_frames].cpu().numpy() if return_mel else None
         return out, mel
+
+    @torch.inference_mode()
+    def stream_vocode(self, mel, chunk_frames: int = 64, margin: Optional[int] = None):
+        """Tiled (streaming) vocoding: yield float32 waveform chunks, in
+        order, of a log-mel of any length, one vocoder call of
+        ``margin + chunk_frames + margin`` frames a chunk.
+
+        HiFi-GAN is convolutional, so an output sample depends only on mel
+        frames within ``vocoder.margin_frames()`` of its own.  The emitted
+        region of each window stays ``margin`` frames from a window edge
+        unless that edge is the signal's (the first window starts at frame
+        0, the last ends at the last frame), so the chunks concatenate to
+        one call on the whole mel; a mel no longer than a window is one
+        call.  ``mel``: (n_mels, T) or (1, n_mels, T), numpy or a tensor,
+        trimmed to its true length."""
+        mel = torch.as_tensor(mel, device=self.device)
+        if mel.ndim == 2:
+            mel = mel[None]
+        mel = mel.to(self.dtype)
+        T = mel.shape[-1]
+        hop = self.cfg.hop_len
+        M = self.vocoder.margin_frames() if margin is None else margin
+        S = chunk_frames + 2 * M
+        if T <= S:
+            wav = self.vocoder(mel).float()[0]
+            yield np.clip(wav.cpu().numpy(), -1.0, 1.0)
+            return
+        for e in range(0, T, chunk_frames):
+            p = max(0, min(e - M, T - S))
+            wav = self.vocoder(mel[:, :, p:p + S]).float()
+            lo, hi = e - p, min(e + chunk_frames, T) - p
+            yield np.clip(wav[0, lo * hop:hi * hop].cpu().numpy(), -1.0, 1.0)
+
+    @torch.inference_mode()
+    def synthesize_streaming(
+        self,
+        text,
+        face,
+        n_timesteps: Optional[int] = None,
+        temperature: Optional[float] = None,
+        stoc: bool = False,
+        seed: int = 0,
+        chunk_frames: int = 64,
+    ):
+        """Streaming :meth:`synthesize`: encode and decode (the sampler needs
+        the whole mel), then :meth:`stream_vocode` of the trimmed mel, so
+        the first audio comes after one window's vocoder call.  The chunks
+        concatenate to the vocoder's output on that mel."""
+        cfg = self.cfg
+        n_timesteps = n_timesteps or cfg.timesteps
+        temperature = cfg.temperature if temperature is None else temperature
+        _, x, x_len = self._prepare_text(text)
+        face_b = face if isinstance(face, torch.Tensor) else self.prepare_face(face)
+        enc = self._encode(x, x_len, face_b)
+        ty = pick_bucket(int(np.ceil(float(enc[3][0]))), cfg.mel_buckets)
+        dec, y_len = self._decode(enc, ty, n_timesteps, temperature, stoc, seed)
+        yield from self.stream_vocode(dec[:, :, :int(y_len[0])], chunk_frames)
 
     @torch.inference_mode()
     def synthesize_batch(

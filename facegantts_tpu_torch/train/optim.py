@@ -142,6 +142,14 @@ class GeneratorOptimizer:
         self.count += 1
         return norm
 
+    def state_dict(self) -> dict:
+        """The Adam (or SGD) moments and step counts of every group, and the
+        schedule's position (the JAX ``opt_state``)."""
+        return {"count": self.count, "opt": self.opt.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.count = int(sd["count"])
+        self.opt.load_state_dict(sd["opt"])
 
 
 def gan_group(name: str) -> str:
@@ -171,6 +179,14 @@ class _ClippedAdam:
                 raise RuntimeError(f"{type(self).__name__}.step: no gradients")
             clip_by_global_norm_(grads, self.max_norm)
         self.opt.step()
+
+    def state_dict(self) -> dict:
+        """The Adam moments and step counts of every group (the learning
+        rate is constant)."""
+        return {"opt": self.opt.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.opt.load_state_dict(sd["opt"])
 
 
 class GanGeneratorOptimizer(_ClippedAdam):

@@ -26,6 +26,7 @@ from facegantts_tpu.models.facetts import FaceTTS as JFaceTTS
 from facegantts_tpu_torch import convert
 from facegantts_tpu_torch.config import default_config
 from facegantts_tpu_torch.models.facetts import FaceTTS
+from facegantts_tpu_torch.models.hifigan import HiFiGANGenerator
 from torch_cpu import torch_threads_started  # noqa: F401
 from tests.test_e2e_parity import DIMS, EST_SCALE, GOLDEN, RECIPE, Y_MAX, _inputs
 from tests.test_torch_models import _random_variables
@@ -187,16 +188,58 @@ def _cli_args(out_dir, **extra):
     ] + [f"{k}={v}" for k, v in extra.items()]
 
 
-@pytest.mark.parametrize("key", ["resume_from", "vocoder_ckpt"])
-def test_inference_cli_refuses_weight_files(tmp_path, key):
-    """A weight file the port cannot load yet raises by name before any
-    model is built, rather than synthesising from random weights."""
-    from facegantts_tpu_torch import inference
+def _weight_file(tmp_path, key):
+    """A port checkpoint directory (``resume_from``) or a bshall vocoder file
+    with weight norm (``vocoder_ckpt``), weights from seed 5."""
+    from facegantts_tpu_torch.train import checkpoint as ck
+    from facegantts_tpu_torch.train.step import init_state
 
-    out_dir = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match=key):
-        inference.main(_cli_args(out_dir, use_custom=1, **{key: str(tmp_path / "w.pt")}))
-    assert not out_dir.exists()
+    cfg = default_config(env={}, overrides=dict(TINY, use_gan=0, seed=5))
+    if key == "resume_from":
+        state = init_state(cfg, "cpu")
+        ck.save_checkpoint(str(tmp_path / "ckpt"), state, step=4)
+        return str(tmp_path / "ckpt"), {"model": state.model.state_dict()}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        voc = HiFiGANGenerator(in_channels=cfg.n_mels)
+    for m in voc.modules():
+        if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
+            torch.nn.utils.weight_norm(m)
+    torch.save({"generator": voc.state_dict()}, tmp_path / "hifigan.pt")
+    return str(tmp_path / "hifigan.pt"), {"vocoder": ck.load_hifigan_state_dict(
+        str(tmp_path / "hifigan.pt"))}
+
+
+@pytest.mark.parametrize("key", ["resume_from", "vocoder_ckpt"])
+def test_inference_cli_loads_weight_files(tmp_path, key, monkeypatch):
+    """``resume_from=`` a port checkpoint directory and ``vocoder_ckpt=`` a
+    bshall file load into the Synthesizer, and the waveforms differ from
+    those of the random weights; a path that does not exist raises."""
+    from facegantts_tpu_torch import inference
+    from facegantts_tpu_torch.synthesis import Synthesizer
+
+    path, want = _weight_file(tmp_path, key)
+    synths, orig = [], Synthesizer.__init__
+
+    def init(self, *a, **k):
+        orig(self, *a, **k)
+        synths.append(self)
+
+    monkeypatch.setattr(Synthesizer, "__init__", init)
+    outs = {}
+    for tag, extra in (("random", {}), ("loaded", {key: path})):
+        outs[tag] = tmp_path / tag
+        inference.main(_cli_args(outs[tag], use_custom=1, **extra))
+        assert sorted(os.listdir(outs[tag])) == ["face_sample_0.wav", "face_sample_1.wav"]
+    for name, sd in want.items():
+        got = getattr(synths[-1], name).state_dict()
+        assert all(torch.equal(got[k].float(), v.to(got[k].dtype).float())
+                   for k, v in sd.items()), name
+    for f in ("face_sample_0.wav", "face_sample_1.wav"):
+        assert (outs["random"] / f).read_bytes() != (outs["loaded"] / f).read_bytes()
+    with pytest.raises(FileNotFoundError):
+        inference.main(_cli_args(tmp_path / "none", use_custom=1,
+                                 **{key: str(tmp_path / "missing.pt")}))
 
 
 def _recording_faces(monkeypatch):

@@ -41,7 +41,8 @@ def test_port_imports_with_jax_blocked():
     mods = _port_modules()
     assert {"facegantts_tpu_torch.synthesis", "facegantts_tpu_torch.train.loop",
             "facegantts_tpu_torch.ops.mas", "facegantts_tpu_torch.probe",
-            "facegantts_tpu_torch.models.discriminator"} <= set(mods)
+            "facegantts_tpu_torch.models.discriminator", "facegantts_tpu_torch.serve",
+            "facegantts_tpu_torch.train.checkpoint"} <= set(mods)
     code = (
         "import sys\n"
         + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
@@ -97,6 +98,19 @@ def test_trainer_and_probe_without_cuda_raise(monkeypatch):
         probe.main([])
 
 
+def test_server_without_cuda_raises(monkeypatch, tmp_path):
+    """The server defaults to the card: without one it raises before it
+    reads a weight file or binds a port."""
+    from facegantts_tpu_torch import serve
+    from facegantts_tpu_torch.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["port=0", f"resume_from={tmp_path / 'missing'}"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.SynthesisService(Config())
+
+
 def test_kernel_sources_present_and_built_for_sm90a():
     from facegantts_tpu_torch.ops import kernels
 
@@ -142,6 +156,6 @@ def test_port_package_layout_mirrors_jax_package():
                 "models.syncnet", "models.facetts", "models.hifigan", "models.discriminator",
                 "text.cmudict",
                 "utils.audio", "data.dataset", "train.state", "train.optim", "train.step",
-                "train.loop"):
+                "train.loop", "train.checkpoint", "serve"):
         importlib.import_module(f"facegantts_tpu_torch.{mod}")
         assert os.path.exists(os.path.join(ROOT, "facegantts_tpu", *mod.split(".")) + ".py")
