@@ -106,6 +106,26 @@ non-zero and prints no result line):
    a shape (with the default TF32 convolutions the f32 chunks' difference
    from one call is printed too).  The checks of the phase are collected
    and it fails at its end if any did.
+13. the training options, each through ``train/loop.train`` at the Config
+   widths on ``SyntheticDataset`` (seed 0), batch 64, ``fused_gn_mish=1``,
+   for OPT_STEPS steps and one validation batch, with every metric finite,
+   masters and optimizer state f32, and the launches asserted, counts
+   zeroed just before and read just after (K1's forwards and backwards by
+   dtype, MAS; ``option_counts`` derives them from the code):
+   ``train_bf16`` in the plain step (then against f32 in turns on one
+   batch: step ms, peak memory); ``disc_bf16`` in the GAN step (then 0 and
+   1 in turns with R1 on and off: step ms, peak memory, ``d_loss`` and
+   ``r1_penalty``; the D phase's ms a micro-batch; a ``torch.profiler``
+   breakdown of one warm ``disc_bf16=1`` R1 step with its sm80-generation
+   kernels counted); ``train_bf16`` in the GAN step;
+   ``adv_grad_through_sampler`` in micro-batches of 8 (at the Config's 16
+   the step does not fit the card's memory; step ms, peak memory, the gate
+   on ``g_loss``);
+   ``grad_remat`` (then 0 and 1 in turns: step ms, peak
+   memory).  Then K1's bf16 backward kernel at the five plain-crop and the
+   five B=16 Ty=436 shapes against ``gn_mish_mask_bwd_ref`` (the bars of
+   ``k1_bwd_case``), with card and device times, the plain version's and
+   the bound.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -168,6 +188,17 @@ MAS_GAN_SHAPES = [(16, 256, 436), (16, 256, 872)]
 # the K1 backward's shapes: a GAN eval's (B=16, 436), the streaming 872 slab,
 # a plain step's eval (B=64, 128 frames), with launches per eval (0: none)
 K1_BWD_SHAPES = K1_GAN_436 + [(K1_GAN_872[0][0], 0)] + K1_TRAIN
+# phase 13: steps of each option's loop run, and the option off / on in turns
+OPT_STEPS = 2
+OPT_TURNS = (0, 1, 1, 0)
+# the plain step (~0.3 s) is host-bound, so its steps vary more: ten pairs
+PLAIN_TURNS = OPT_TURNS * 5
+# adv_grad_through_sampler keeps the activations of T=10 U-Net evaluations
+# of a micro-batch for its backward: at the Config's 16 the step runs out of
+# the card's 80 GB (torch.OutOfMemoryError with 76.84 GiB allocated when a
+# 218 MiB allocation failed, H100 80GB HBM3 at 700 W; PERF.md §6, phase 13's
+# table); 8, the largest divisor of the batch of 64 that fits, is used
+ADV_MICRO = 8
 P2_SHAPES = [(t_y, b, t_x) for t_x in (1, 31, 33, 100, 128, 1024) for t_y in (1, 17, 256)
              for b in (1, 8)]
 
@@ -664,6 +695,395 @@ def gan_phase(work_dir):
         "state": state, "batch": batch, "train_ds": train_ds, "val_ds": val_ds,
         "n_batches": len(loader),
     }
+
+
+class path_counts:
+    """Inside the block: every kernel's launches (``kernels.LAUNCHES``, zeroed
+    on entry, read on exit) and the dtype of every K1 forward call from the
+    U-Net and every K1 backward call."""
+
+    def __enter__(self):
+        from facegantts_tpu_torch.models import unet as unet_mod
+        from facegantts_tpu_torch.ops import gn_mish, kernels
+
+        self.fwd, self.bwd = collections.Counter(), collections.Counter()
+        self.orig = unet_mod.gn_mish_mask, gn_mish.gn_mish_mask_bwd
+
+        def fwd(x, *a, **k):
+            self.fwd[str(x.dtype)[6:]] += 1
+            return self.orig[0](x, *a, **k)
+
+        def bwd(g, x, *a, **k):
+            self.bwd[str(x.dtype)[6:]] += 1
+            return self.orig[1](g, x, *a, **k)
+
+        unet_mod.gn_mish_mask, gn_mish.gn_mish_mask_bwd = fwd, bwd
+        kernels.LAUNCHES.clear()
+        return self
+
+    def __exit__(self, *exc):
+        from facegantts_tpu_torch.models import unet as unet_mod
+        from facegantts_tpu_torch.ops import gn_mish, kernels
+
+        unet_mod.gn_mish_mask, gn_mish.gn_mish_mask_bwd = self.orig
+        self.launches = dict(kernels.LAUNCHES)
+
+    def check(self, label, fwd, fwd_bf16, bwd, bwd_bf16, n_mas):
+        """Raise unless the block launched K1's forward ``fwd`` times
+        (``fwd_bf16`` of them bf16), its backward ``bwd`` times (``bwd_bf16``
+        bf16) and MAS ``n_mas`` times."""
+        from facegantts_tpu_torch.ops import gn_mish, mas
+
+        got = (self.launches.get(gn_mish.NAME, 0), self.fwd["bfloat16"],
+               self.launches.get(gn_mish.BWD_NAME, 0), self.bwd["bfloat16"],
+               self.launches.get(mas.NAME, 0))
+        want = (fwd, fwd_bf16, bwd, bwd_bf16, n_mas)
+        if got != want or sum(self.fwd.values()) != fwd or sum(self.bwd.values()) != bwd:
+            raise AssertionError(f"[options {label}] launches (K1 forward, of them bf16, K1 "
+                                 f"backward, of them bf16, MAS) {got}, want {want}; K1 calls by "
+                                 f"dtype: forward {dict(self.fwd)}, backward {dict(self.bwd)}")
+        return got
+
+
+def option_counts(cfg):
+    """Per GAN step of ``cfg`` at batch 64 (plain step: per step), what the
+    code launches: (K1 forwards, of them bf16, K1 backwards, of them bf16,
+    MAS).  The no-grad sampler's bf16 model runs K1 in bf16; every other
+    U-Net evaluation gets an f32 activation, also under ``train_bf16``,
+    where the JAX package's flax promotes the encoder (from its first
+    attention on) and the U-Net to f32 with bf16 weights
+    (``train/precision.py``), so K1's backward runs in f32 on every path."""
+    if not cfg.use_gan:
+        return K1_PER_EVAL, 0, K1_PER_EVAL, 0, 1
+    n = cfg.per_gpu_batchsize // cfg.micro_batch_size
+    sampler = n * K1_PER_EVAL * cfg.train_fake_timesteps
+    g_evals = 1 + (cfg.timesteps if cfg.adv_grad_through_sampler else 0)
+    g_fwd = n * K1_PER_EVAL * g_evals * (2 if cfg.grad_remat else 1)
+    return (sampler + g_fwd, sampler, n * K1_PER_EVAL * g_evals, 0,
+            n * (2 if cfg.grad_remat else 1))
+
+
+def option_run(label, cfg, work_dir, steps, train_ds, val_ds):
+    """``train/loop.train`` under ``cfg`` for ``steps`` steps and its
+    validation (one batch): every metric finite, the launches of the steps
+    and the validation batch as ``option_counts`` says, masters and
+    optimizer state f32.  Returns (state, step ms, peak bytes, launches,
+    the last step's metrics)."""
+    import shutil
+
+    import torch
+
+    from facegantts_tpu_torch.train.loop import train
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with path_counts() as counts:
+        state = train(cfg, work_dir, steps, train_ds, val_ds, device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    key = "train/g_loss" if cfg.use_gan else "train/total_loss"
+    logged = [r for r in recs if key in r]
+    vals = [r for r in recs if "val/total_loss" in r]
+    if [r["step"] for r in logged] != list(range(1, steps + 1)) or not vals:
+        raise AssertionError(f"[options {label}] logged steps {[r['step'] for r in logged]}, "
+                             f"{len(vals)} validations")
+    for r in logged + vals:
+        bad = [k for k, v in r.items() if k != "step" and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"[options {label}] non-finite {bad} at step {r['step']}")
+    n_val = int(vals[-1]["val/batches"])
+    if n_val != 1:
+        raise AssertionError(f"[options {label}] {n_val} validation batches, want 1")
+    fwd, fwd16, bwd, bwd16, n_mas = option_counts(cfg)
+    if cfg.use_gan:  # a validation batch: the no-grad sampler and one f32 loss
+        v_fwd, v_fwd16 = K1_PER_EVAL * (cfg.train_fake_timesteps + 1), (
+            K1_PER_EVAL * cfg.train_fake_timesteps)
+    else:
+        v_fwd, v_fwd16 = K1_PER_EVAL, 0
+    got = counts.check(label, steps * fwd + v_fwd, steps * fwd16 + v_fwd16, steps * bwd,
+                       steps * bwd16, steps * n_mas + 1)
+    for module in (state.model, state.disc):
+        if module is None:
+            continue
+        bad = [n for n, p in module.named_parameters() if p.dtype != torch.float32
+               or (p.grad is not None and p.grad.dtype != torch.float32)]
+        if bad:
+            raise AssertionError(f"[options {label}] not f32: {bad[:4]}")
+    for opt in (state.optimizer, state.disc_optimizer):
+        if opt is None:
+            continue
+        bad = [k for st in opt.opt.state.values() for k, v in st.items()
+               if torch.is_tensor(v) and v.dim() and v.dtype != torch.float32]
+        if bad:
+            raise AssertionError(f"[options {label}] optimizer state not f32: {bad[:4]}")
+    step_ms = [1e3 / r["train/steps_per_sec"] for r in logged]
+    return state, step_ms, peak, got, logged[-1]
+
+
+def k1_bwd_bf16(shape, gen):
+    """K1's backward kernel in bf16 against ``gn_mish_mask_bwd_ref`` at one
+    shape (``k1_bwd_case``'s bars: dx 2^-8, dscale and dbias 1e-4 of the
+    largest value), its card time, device time alone, the plain version's
+    time and the bound (bf16 x and g read, dx written; f32 scale, bias,
+    lens, stats in, (B, C, 2) partials out; operations over the f32 rate)."""
+    import torch
+
+    from facegantts_tpu_torch.ops.gn_mish import gn_mish_mask_bwd, gn_mish_mask_bwd_ref, group_stats
+
+    b, c, f, t = shape
+    lens = [(t - 3, t, t // 2, 1)[i % 4] for i in range(b)]
+    err = k1_bwd_case(shape, torch.bfloat16, lens, gen)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
+    g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    scale = torch.randn(c, generator=gen, device="cuda") * 6
+    bias = torch.randn(c, generator=gen, device="cuda") * 8
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    stats = group_stats(x)
+    n = b * c * f * t
+    bound_ms, bound_by = bound(3 * n * 2 + 2 * c * 4 + b * 4 + b * 8 * 8 + b * c * 8,
+                               n_ops=n * K1_BWD_OPS_PER_ELEM)
+
+    def kern():
+        return gn_mish_mask_bwd(g, x, scale, bias, lens_t, stats)
+
+    return {"err": err, "ms": time_ms(kern, iters=20, reps=5),
+            "plain_ms": time_ms(lambda: gn_mish_mask_bwd_ref(g, x, scale, bias, lens_t, stats),
+                                iters=5, reps=3),
+            "dev_us": profiled_us(kern, K1_BWD_KERNEL), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def step_turns(label, steps, batch, state, gen, order, **kw):
+    """Steps of ``steps[k]`` in ``order`` on one batch, drawing from
+    ``gen``: ms (host clock around the step and a read of its metrics),
+    peak bytes, metrics.  The allocator's cache is kept between steps, as
+    in a training loop: with it emptied before each step, the f32 plain
+    step's turns ranged 228-458 ms on an H100 80GB HBM3 at 700 W, as each
+    step allocated its memory anew."""
+    import torch
+
+    res = {k: [] for k in steps}
+    for k in steps:  # each step function's first call builds its plans
+        steps[k](state, batch, gen, **kw)
+    for k in order:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        _, m = steps[k](state, batch, gen, **kw)
+        m = {n: float(v) for n, v in m.items()}  # synchronises
+        ms = (time.perf_counter() - t1) * 1e3
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"[options {label}] {k}: non-finite metrics {m}")
+        res[k].append((ms, torch.cuda.max_memory_allocated(), m))
+    return res
+
+
+def warm_ms(rows):
+    """The median and every step's ms of ``step_turns`` rows."""
+    ms = [r[0] for r in rows]
+    return f"{statistics.median(ms):.1f} ms (all {[round(v, 1) for v in ms]})"
+
+def peak_gib(rows):
+    """The largest peak of ``step_turns`` rows, GiB."""
+    return f"{max(r[1] for r in rows) / 2**30:.2f} GiB"
+
+
+def plain_bf16_turns(smi, state, batch, cfg16):
+    """Phase 13's plain step: ``train_bf16`` 1 against 0 on one batch in
+    PLAIN_TURNS, each setting's warm steps, peak memory and one warm step's
+    device time and launches, and the kernels behind the difference.  Logs;
+    returns the turns' results."""
+    import torch
+
+    from facegantts_tpu_torch.train.step import make_plain_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    steps = {0: make_plain_train_step(cfg16.replace(train_bf16=0), "cuda")[0],
+             1: make_plain_train_step(cfg16, "cuda")[0]}
+    res = step_turns("plain", steps, batch, state, gen, PLAIN_TURNS)
+    kernels = {}
+    for k in (0, 1):
+        for _ in range(3):  # the profiler now and then returns no device events
+            per, _, count = device_profile(lambda: steps[k](state, batch, gen), n=1)
+            if per:
+                break
+        kernels[k] = per, count
+        busy = (f"{sum(per.values()) / 1e3:.1f} ms in {round(sum(count.values()))} kernel "
+                f"launches" if per else "not measured")
+        log(f"[options plain train_bf16] {smi}: train_bf16={k} in turns {PLAIN_TURNS}, bucket "
+            f"{(batch.x.shape[1], batch.y.shape[2])}: {warm_ms(res[k])}, peak "
+            f"{peak_gib(res[k])}, total_loss {min(r[2]['total_loss'] for r in res[k]):.4f} to "
+            f"{max(r[2]['total_loss'] for r in res[k]):.4f}; one warm step's device busy {busy}")
+    (per32, n32), (per16, n16) = kernels[0], kernels[1]
+    if per32 and per16:  # where train_bf16's extra device time and launches go
+        extra = sorted(set(per32) | set(per16), key=lambda n: per32[n] - per16[n])[:8]
+        for name in extra:
+            log(f"[options plain train_bf16]   +{(per16[name] - per32[name]) / 1e3:.3f} ms "
+                f"({round(n16[name])} vs {round(n32[name])} launches)  {name[:110]}")
+    return res
+
+
+def options_phase(smi):
+    """Phase 13: the four training options at the Config widths on
+    ``SyntheticDataset`` (seed 0) at batch 64, ``fused_gn_mish=1``, each
+    through ``train/loop.train`` for OPT_STEPS steps and one validation
+    batch (launches asserted, masters and optimizer state f32), then timed
+    in turns on one batch against the setting without it; K1's bf16
+    backward at the slice's shapes.  ``adv_grad_through_sampler`` runs in
+    micro-batches of ADV_MICRO.  Logs as it goes; returns the launches
+    of the loop runs and the K1 bf16 backward results."""
+    import torch
+
+    from facegantts_tpu_torch.config import default_config
+    from facegantts_tpu_torch.data.dataset import BucketedLoader, SyntheticDataset
+    from facegantts_tpu_torch.train.step import (
+        _micro_split,
+        make_gan_loss_fns,
+        make_gan_train_step,
+    )
+
+    train_ds = SyntheticDataset(n_items=1024, n_mels=128, seed=0)
+    # 160 items of 300-430 frames: one full validation batch, bucket (128, 436)
+    val_ds = SyntheticDataset(n_items=160, n_mels=128, seed=1, min_frames=300, max_frames=430)
+    work = os.path.join(ROOT, "runs", "chip_smoke_options")
+    launches = collections.Counter()
+    out = {}
+
+    def loop(label, cfg):
+        """``option_run`` under ``cfg``, its launches added to the phase's."""
+        res = option_run(label, cfg, work, OPT_STEPS, train_ds, val_ds)
+        launches.update(dict(zip(("K1", "K1 bf16", "K1 bwd", "K1 bwd bf16", "MAS"), res[3])))
+        return res
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # -- the plain step under train_bf16, against f32 -------------------------------
+    cfg16 = default_config(env={}, overrides=dict(TRAIN_OVERRIDES, train_bf16=1))
+    state, step_ms, peak, got, last = loop("plain train_bf16", cfg16)
+    log(f"[options plain train_bf16] {smi}: loop steps {[round(v, 1) for v in step_ms]} ms, "
+        f"peak {peak / 2**30:.2f} GiB; launches (K1, bf16, K1 bwd, bf16, MAS) {got}; last "
+        + " ".join(f"{k[6:]}={v:.4f}" for k, v in last.items() if k.startswith("train/")))
+    batch = next(BucketedLoader(train_ds, cfg16, cfg16.per_gpu_batchsize).epoch(0))
+    res = plain_bf16_turns(smi, state, batch, cfg16)
+    out["plain"] = res
+    del state
+
+    # -- the GAN step under disc_bf16, against f32, R1 on and off -------------------
+    gcfg = default_config(env={}, overrides=GAN_OVERRIDES)
+    dcfg = gcfg.replace(disc_bf16=1)
+    state, step_ms, peak, got, last = loop("disc_bf16", dcfg)
+    log(f"[options disc_bf16] {smi}: loop steps {[round(v, 1) for v in step_ms]} ms, peak "
+        f"{peak / 2**30:.2f} GiB; launches {got}")
+    batch = next(BucketedLoader(train_ds, gcfg, gcfg.per_gpu_batchsize).epoch(0))
+    bucket = (batch.x.shape[1], batch.y.shape[2])
+    steps = {0: make_gan_train_step(gcfg, "cuda")[0], 1: make_gan_train_step(dcfg, "cuda")[0]}
+    for use_r1 in (1, 0):
+        res = step_turns("disc_bf16", steps, batch, state, gen, OPT_TURNS, use_r1=bool(use_r1))
+        for k in (0, 1):
+            log(f"[options disc_bf16] {smi}: disc_bf16={k}, R1 {'on' if use_r1 else 'off'}, in "
+                f"turns {OPT_TURNS}, bucket {bucket}: {warm_ms(res[k])}, peak {peak_gib(res[k])}; "
+                f"d_loss {[round(r[2]['d_loss'], 4) for r in res[k]]} r1_penalty "
+                f"{[round(r[2]['r1_penalty'], 4) for r in res[k]]}")
+        out[("disc_bf16", use_r1)] = res
+    mb = _micro_split(batch.to("cuda"), gcfg.micro_batch_size)[1][0]
+    d_params = list(state.disc.parameters())
+    fake = make_gan_loss_fns(gcfg)[0](state.model, mb, gen)
+    d_fns = {k: make_gan_loss_fns(c)[1] for k, c in ((0, gcfg), (1, dcfg))}
+    for r1 in (1, 0):
+        vals = {k: d_fns[k](state.disc, mb.y, fake, bool(r1)) for k in (0, 1)}
+        vals = {k: (float(v[0]), float(v[1]["r1_penalty"]), float(v[1]["disc_acc"]))
+                for k, v in vals.items()}
+        log(f"[options disc_bf16] {smi}: one micro-batch, one state and fake, R1 "
+            f"{'on' if r1 else 'off'}: (d_loss, r1_penalty, disc_acc) f32 {vals[0]}, bf16 "
+            f"{vals[1]}; relative difference of d_loss "
+            f"{abs(vals[1][0] - vals[0][0]) / abs(vals[0][0]):.3e}")
+        out[("d_values", r1)] = vals
+    order = [(k, r1) for k in OPT_TURNS for r1 in (1, 0)]
+    d_ms = time_ms_turns([lambda k=k, r1=r1: torch.autograd.grad(
+        d_fns[k](state.disc, mb.y, fake, bool(r1))[0], d_params) for k, r1 in order],
+        iters=1, reps=3)
+    by = collections.defaultdict(list)
+    for (k, r1), v in zip(order, d_ms):
+        by[(k, r1)].append(v)
+    log(f"[options disc_bf16] {smi}: the D phase of one micro-batch (B={gcfg.micro_batch_size}, "
+        f"bucket {bucket}; forwards, loss and gradients), CUDA events, medians of 3 in turns: "
+        + ", ".join(f"disc_bf16={k} R1 {'on' if r1 else 'off'} "
+                    f"{[round(v, 2) for v in by[(k, r1)]]} ms" for k in (0, 1) for r1 in (1, 0)))
+    out["d_phase_ms"] = dict(by)
+    for _ in range(3):  # the profiler now and then returns no device events
+        prof = device_profile(lambda: steps[1](state, batch, gen, use_r1=True), n=1)
+        if prof[0]:
+            break
+    per, _, count = prof
+    if not per:
+        log("[options disc_bf16 profile] the profiler saw no device time: not measured")
+    else:
+        sm80 = {k: v for k, v in per.items() if "sm80" in k}
+        log(f"[options disc_bf16 profile] {smi}: one warm disc_bf16=1 R1 step, bucket {bucket}: "
+            f"device busy {sum(per.values()) / 1e3:.1f} ms; kernels named sm80: "
+            f"{sum(sm80.values()) / 1e3:.2f} ms in {sum(count[k] for k in sm80):.0f} launches")
+        for k, v in per.most_common(12):
+            log(f"[options disc_bf16 profile]   {v / 1e3:8.3f} ms ({count[k]:.0f}x)  {k[:100]}")
+    out["profile"] = prof
+    del state, steps, fake, mb, d_params, d_fns
+
+    # -- the GAN step under train_bf16 ------------------------------------------
+    state, step_ms, peak, got, last = loop("GAN train_bf16", gcfg.replace(train_bf16=1))
+    log(f"[options GAN train_bf16] {smi}: loop steps {[round(v, 1) for v in step_ms]} ms, peak "
+        f"{peak / 2**30:.2f} GiB; launches {got}; last " + " ".join(
+            f"{k[6:]}={v:.4f}" for k, v in last.items() if k.startswith("train/")
+            and k[6:] in ("d_loss", "g_loss", "r1_penalty", "adv_loss", "diffusion_loss")))
+    del state
+
+    # -- the GAN step under adv_grad_through_sampler ----------------------------------
+    acfg = gcfg.replace(adv_grad_through_sampler=1, micro_batch_size=ADV_MICRO)
+    state, step_ms, peak, got, last = loop("adv_grad_through_sampler", acfg)
+    log(f"[options adv_grad_through_sampler] {smi}: micro-batches of {ADV_MICRO}, fakes at "
+        f"{acfg.train_fake_timesteps} steps; loop steps {[round(v, 1) for v in step_ms]} ms, "
+        f"peak {peak / 2**30:.2f} GiB; launches {got}; last " + " ".join(
+            f"{k[6:]}={v:.4f}" for k, v in last.items() if k.startswith("train/")
+            and k[6:] in ("d_loss", "g_loss", "g_guard_loss", "adv_loss")))
+    if last["train/g_guard_loss"] != last["train/g_loss"]:
+        raise AssertionError("[options adv_grad_through_sampler] the G gate is not g_loss")
+    out["adv"] = (step_ms, peak)
+    del state
+
+    # -- the GAN step under grad_remat, against without -----------------------------
+    rcfg = gcfg.replace(grad_remat=1)
+    state, step_ms, peak, got, last = loop("grad_remat", rcfg)
+    log(f"[options grad_remat] {smi}: loop steps {[round(v, 1) for v in step_ms]} ms, peak "
+        f"{peak / 2**30:.2f} GiB; launches {got}")
+    res = step_turns("grad_remat", {0: make_gan_train_step(gcfg, "cuda")[0],
+                                    1: make_gan_train_step(rcfg, "cuda")[0]},
+                     batch, state, gen, OPT_TURNS)
+    for k in (0, 1):
+        log(f"[options grad_remat] {smi}: grad_remat={k} in turns {OPT_TURNS}, bucket {bucket}, "
+            f"R1 on: {warm_ms(res[k])}, peak {peak_gib(res[k])}")
+    out["remat"] = res
+    del state
+
+    # -- K1's bf16 backward at the slice's shapes --------------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    k1 = {}
+    for label, shapes in (("plain crop (B=64, 128)", K1_TRAIN), ("GAN (B=16, 436)", K1_GAN_436)):
+        for shape, n in shapes:
+            r = k1[shape] = k1_bwd_bf16(shape, gen)
+            log(f"[options K1 bwd bf16] {shape} {smi}: against gn_mish_mask_bwd_ref "
+                f"{r['err']:.3e} of the largest (bars dx 2^-8, dscale and dbias 1e-4); card "
+                f"{r['ms'] * 1e3:.1f} us, device only {fmt_us(r['dev_us'])}, plain "
+                f"{r['plain_ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+                f"({r['bound_by']}): {bound_share(r['bound_ms'], r['dev_us'])} of it on the device")
+        tot = {k: sum(k1[s][k] * n for s, n in shapes) for k in ("ms", "plain_ms", "bound_ms")}
+        dev = None if any(k1[s]["dev_us"] is None for s, _ in shapes) else sum(
+            k1[s]["dev_us"] * n for s, n in shapes) / 1e3
+        log(f"[options K1 bwd bf16] {smi}: one {label} U-Net evaluation's {K1_PER_EVAL} "
+            f"backward launches: card {tot['ms']:.3f} ms, device only {fmt_ms(dev)}, plain "
+            f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms")
+    out["k1_bwd_bf16"] = k1
+    out["launches"] = launches
+    return out
 
 
 def _flat_state(obj, prefix=""):
@@ -2009,6 +2429,15 @@ def main(argv=None) -> int:
     if per["fails"]:
         raise AssertionError("[persist] " + "; ".join(per["fails"]))
 
+    # ---- 13. the training options -----------------------------------------------------
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = options_phase(smi)
+    opt_launches = opt["launches"]
+    log(f"[options] launches over the loop runs: {dict(opt_launches)}")
+
     # ---- lines -----------------------------------------------------------------
     f32 = per_eval[(436, torch.float32)]
     k1_err = max(r["err"] for (s, dt), r in results.items() if dt == torch.float32)
@@ -2018,13 +2447,16 @@ def main(argv=None) -> int:
     log(f"[lines] kernels line: {gn_mish.NAME} times are one U-Net evaluation's {K1_PER_EVAL} "
         f"K1 launches at Ty=436, B=1, f32 (per-shape lines above), max_abs_err over every f32 "
         f"shape, launches on the inference ({path_launches[gn_mish.NAME]}), training "
-        f"({tr['launches'][gn_mish.NAME]}), GAN ({gan['launches'][gn_mish.NAME]}) and "
-        f"persistence and serving ({per['launches'][gn_mish.NAME]}) paths; "
+        f"({tr['launches'][gn_mish.NAME]}), GAN ({gan['launches'][gn_mish.NAME]}), "
+        f"persistence and serving ({per['launches'][gn_mish.NAME]}) and training-option "
+        f"({opt_launches['K1']}) paths; "
         f"{gn_mish.BWD_NAME} times are one training "
         f"evaluation's {K1_PER_EVAL} backward launches (B=64), max_abs_err against "
-        f"gn_mish_mask_bwd_ref, launches on the training, GAN and resumed-GAN paths; "
-        f"{mas_mod.NAME} at {MAS_SHAPES[-1]}, launches on the training, GAN and resumed-GAN "
-        f"paths; {gnorm.NAME} summed over the "
+        f"gn_mish_mask_bwd_ref, launches on the training, GAN, resumed-GAN and "
+        f"training-option paths ({opt_launches['K1 bwd bf16']} of them bf16; the bf16 "
+        f"backward's own times are phase 13's); {mas_mod.NAME} at {MAS_SHAPES[-1]}, launches "
+        f"on the training, GAN, resumed-GAN and training-option paths; {gnorm.NAME} summed "
+        f"over the "
         f"{len(K1_TRAIN)} "
         f"training U-Net shapes, launches in the FusedGroupNorm run; probes at their shapes, "
         f"launches in the probe run")
@@ -2040,18 +2472,19 @@ def main(argv=None) -> int:
     log(json.dumps({"kernels": [
         entry(gn_mish.NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:119",
               path_launches[gn_mish.NAME] + tr["launches"][gn_mish.NAME]
-              + gan["launches"][gn_mish.NAME] + per["launches"][gn_mish.NAME],
+              + gan["launches"][gn_mish.NAME] + per["launches"][gn_mish.NAME]
+              + opt_launches["K1"],
               dict(f32, bound_by=k1_by), k1_err),
         entry(gn_mish.BWD_NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:262",
               tr["launches"][gn_mish.BWD_NAME] + gan["launches"][gn_mish.BWD_NAME]
-              + per["launches"][gn_mish.BWD_NAME],
+              + per["launches"][gn_mish.BWD_NAME] + opt_launches["K1 bwd"],
               dict(bwd_only, library_ms=None, bound_by=(
                   collections.Counter(checks[("k1_bwd", s)]["bwd"]["bound_by"]
                                       for s, _ in K1_TRAIN).most_common(1)[0][0])),
               max(checks[("k1_bwd", s)]["bwd_abs_err"] for s, _ in K1_TRAIN)),
         entry(mas_mod.NAME, "csrc/mas.cu", "facegantts_tpu/ops/mas.py:38",
               tr["launches"][mas_mod.NAME] + gan["launches"][mas_mod.NAME]
-              + per["launches"][mas_mod.NAME], mas_big, 0.0),
+              + per["launches"][mas_mod.NAME] + opt_launches["MAS"], mas_big, 0.0),
         entry(gnorm.NAME, "csrc/groupnorm.cu", "facegantts_tpu/ops/groupnorm.py:72",
               gn_launches[gnorm.NAME], dict(k2, bound_by=collections.Counter(
                   checks[("k2", s)]["bound_by"] for s, _ in K1_TRAIN).most_common(1)[0][0]),

@@ -262,20 +262,26 @@ def hifigan_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def discriminator_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``SpectrogramDiscriminator`` ``params`` (parity family, weight
-    norm, no speaker path) -> the port's discriminator state_dict.  flax
-    numbers its ``WeightNorm_i`` in call order: ``conv_prev`` 0, ``conv_j``
-    j + 1, ``post_0`` and ``post_1`` last (``import_discriminator``'s
-    order)."""
+    norm) -> the port's discriminator state_dict.  flax numbers its
+    ``WeightNorm_i`` in call order: ``conv_prev`` 0, then ``spk_mlp`` where
+    the discriminator was initialised with a speaker embedding, then
+    ``conv_j``, ``post_0`` and ``post_1`` (without ``spk_mlp``,
+    ``import_discriminator``'s order)."""
     n = 0
     while f"conv_{n}" in params:
         n += 1
-    names = [("conv_prev", "conv_prev")] + [(f"conv_{i}", f"convs.{i}") for i in range(n)]
+    names = [("conv_prev", "conv_prev")]
+    names += [("spk_mlp", "spk_mlp")] if "spk_mlp" in params else []
+    names += [(f"conv_{i}", f"convs.{i}") for i in range(n)]
     names += [("post_0", "conv_post.0"), ("post_1", "conv_post.1")]
     sd = _SD()
     for idx, (fname, tname) in enumerate(names):
-        kernel = _conv2d(params[fname]["kernel"])
         scale = _a(params[f"WeightNorm_{idx}"][f"{fname}/kernel/scale"])
-        sd.put(tname + ".weight_g", scale.reshape(-1, 1, 1, 1))
-        sd.put(tname + ".weight_v", kernel)
+        if fname == "spk_mlp":  # Dense kernel (in, out) -> Linear (out, in)
+            sd.put(tname + ".weight_g", scale.reshape(-1, 1))
+            sd.put(tname + ".weight_v", _a(params[fname]["kernel"]).T)
+        else:
+            sd.put(tname + ".weight_g", scale.reshape(-1, 1, 1, 1))
+            sd.put(tname + ".weight_v", _conv2d(params[fname]["kernel"]))
         sd.put(tname + ".bias", params[fname]["bias"])
     return dict(sd)

@@ -89,6 +89,7 @@ class Diffusion(nn.Module):
         var = 1.0 - torch.exp(-cum)
         if z is None:
             z = torch.randn(x0.shape, generator=generator, dtype=x0.dtype, device=x0.device)
+        z = z.to(x0.dtype)  # the JAX package draws z in x0's dtype
         xt = mean + z * torch.sqrt(var)
         return xt * mask, z * mask
 

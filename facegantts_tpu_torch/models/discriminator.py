@@ -11,9 +11,13 @@ feature matching, and the flattened logits; with one output channel the
 
 Parameter names are the reference torch ``state_dict``'s (``weight_g``,
 ``weight_v``, ``bias``), so ``train/checkpoint.py: import_discriminator``
-reads them and ``convert.discriminator_state_dict`` writes them.  Not
-ported yet, and raising: spectral norm, the speaker-embedding input
-(ROADMAP item 12) and the ``tpu_opt`` family (ROADMAP item 18).
+reads them and ``convert.discriminator_state_dict`` writes them.  Built with
+``spk_emb_dim > 0`` it also takes a speaker embedding (B, spk_emb_dim)
+through the weight-normed ``spk_mlp`` Linear, added to every frequency row
+and frame of ``conv_prev``'s channels (reference :57-59); neither GAN step
+passes one, so ``from_config`` builds it without.  Not ported, and raising:
+spectral norm, which the JAX package's GAN step cannot run (ROADMAP §3), and
+the ``tpu_opt`` family (ROADMAP item 18).
 """
 
 import math
@@ -49,16 +53,35 @@ class WNConv2d(nn.Module):
         return F.conv2d(x, self.weight(), self.bias, self.stride, self.padding)
 
 
+class WNLinear(nn.Module):
+    """Linear with flax ``WeightNorm``'s reparametrisation over the input
+    axis: ``weight_v`` (out, in) over its per-output L2 norm, times
+    ``weight_g`` (out, 1), as torch ``weight_norm`` lays out a Linear."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight_g = nn.Parameter(torch.ones(out_features, 1))
+        self.weight_v = nn.Parameter(torch.randn(out_features, in_features)
+                                     / math.sqrt(in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        v = self.weight_v
+        w = v * torch.rsqrt(v.square().sum(dim=1, keepdim=True) + WN_EPS) * self.weight_g
+        return F.linear(x, w, self.bias)
+
+
 class SpectrogramDiscriminator(nn.Module):
     def __init__(self, base_channels: int = 64, num_layers: int = 5, kernel_height: int = 12,
                  kernel_width: int = 5, stride: int = 1, padding: int = 6,
                  lrelu_slope: float = 0.3, use_spectral_norm: int = 0,
-                 family: str = "parity"):
+                 family: str = "parity", spk_emb_dim: int = 0):
         super().__init__()
         if use_spectral_norm:
             raise NotImplementedError(
-                "use_spectral_norm=1: the spectral-norm discriminator is not ported yet "
-                "(ROADMAP item 12); use weight norm (use_spectral_norm=0)")
+                "use_spectral_norm=1: the JAX package's GAN step cannot run the spectral-norm "
+                "discriminator, so the port has no reference for it (ROADMAP §3); use weight "
+                "norm (use_spectral_norm=0)")
         if family != "parity":
             raise NotImplementedError(
                 f"disc_family={family!r}: only the 'parity' discriminator is ported "
@@ -66,6 +89,7 @@ class SpectrogramDiscriminator(nn.Module):
         self.slope = lrelu_slope
         kernel, pad = (kernel_height, kernel_width), (1, padding)
         self.conv_prev = WNConv2d(1, base_channels, kernel, pad)
+        self.spk_mlp = WNLinear(spk_emb_dim, base_channels) if spk_emb_dim else None
         self.convs = nn.ModuleList([
             WNConv2d(base_channels, base_channels, kernel, pad, stride=(1, stride))
             for _ in range(num_layers)
@@ -87,14 +111,16 @@ class SpectrogramDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor, speaker_emb: Optional[torch.Tensor] = None
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-        """x (B, 1, F, T) -> (feature maps, logits (B, F' * T'))."""
-        if speaker_emb is not None:
-            raise NotImplementedError(
-                "the discriminator's speaker-embedding input is not ported yet (ROADMAP "
-                "item 12); the GAN step calls it without one")
+        """x (B, 1, F, T), speaker_emb (B, spk_emb_dim) or None -> (feature
+        maps, logits (B, F' * T'))."""
         fmap = []
         h = F.leaky_relu(self.conv_prev(x), self.slope)
         fmap.append(h)
+        if speaker_emb is not None:
+            if self.spk_mlp is None:
+                raise ValueError("this discriminator was built without a speaker input "
+                                 "(spk_emb_dim=0)")
+            h = h + self.spk_mlp(speaker_emb)[:, :, None, None]
         for conv in self.convs:
             h = F.leaky_relu(conv(h), self.slope)
             fmap.append(h)

@@ -23,6 +23,7 @@ from facegantts_tpu_torch.models.text_encoder import TextEncoder
 from facegantts_tpu_torch.ops.align import duration_loss, generate_path, sequence_mask
 from facegantts_tpu_torch.ops.mas import maximum_path
 from facegantts_tpu_torch.text.symbols import symbols
+from facegantts_tpu_torch.train.precision import einsum
 
 
 class LossParts(NamedTuple):
@@ -122,7 +123,7 @@ class FaceTTS(nn.Module):
         y_mask = sequence_mask(y_lengths, y_max_length).to(mu_x.dtype)[:, None, :]
         attn_mask = x_mask * y_mask  # (B, Tx, Ty)
         attn = generate_path(w_ceil[..., 0], attn_mask)
-        mu_y = torch.einsum("bxy,bxf->bfy", attn, mu_x)  # (B, F, Ty)
+        mu_y = einsum("bxy,bxf->bfy", attn, mu_x).to(mu_x.dtype)  # (B, F, Ty)
         if noise is None:
             noise = torch.randn(mu_y.shape, generator=generator, dtype=torch.float32,
                                 device=mu_y.device)
@@ -170,9 +171,13 @@ class FaceTTS(nn.Module):
         with torch.no_grad():
             mu_sg = mu_x.detach()
             const = -0.5 * math.log(2 * math.pi) * self.n_feats
-            y_sq = torch.sum(-0.5 * y**2, dim=1)[:, None, :]  # (B, 1, Ty)
-            y_mu = torch.einsum("bxf,bfy->bxy", mu_sg, y)
-            mu_sq = torch.sum(-0.5 * mu_sg**2, dim=-1)[:, :, None]  # (B, Tx, 1)
+            # for a bf16 model as JAX computes it: y_mu in f32 (the package's
+            # preferred_element_type), the squared norms summed in f32 and
+            # rounded to bf16 once (XLA keeps a fused chain in f32), so that
+            # the path does not turn on roundings of its own
+            y_sq = torch.sum(-0.5 * y.float()**2, dim=1).to(y.dtype)[:, None, :]  # (B, 1, Ty)
+            y_mu = torch.einsum("bxf,bfy->bxy", mu_sg.float(), y.float())
+            mu_sq = torch.sum(-0.5 * mu_sg.float()**2, dim=-1).to(mu_sg.dtype)[:, :, None]
             log_prior = y_sq + y_mu + mu_sq + const
             attn = maximum_path(log_prior.contiguous(), attn_mask.contiguous())
 
@@ -192,7 +197,8 @@ class FaceTTS(nn.Module):
             y_cut_lengths = torch.clamp(y_lengths, max=out_size)
             y_mask = sequence_mask(y_cut_lengths, out_size).to(y_mask.dtype)[:, None, :]
 
-        mu_y = torch.einsum("bxy,bxf->bfy", attn, mu_x)
+        # one text row a frame: mu_y holds mu_x's values exactly, in its dtype
+        mu_y = einsum("bxy,bxf->bfy", attn.to(mu_x.dtype), mu_x)
 
         diff_loss, xt, xt_hat = self.decoder.compute_loss(
             y, y_mask, mu_y, spk_e, t=t, z=z, generator=generator)

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from facegantts_tpu_torch.ops.align import sequence_mask
+from facegantts_tpu_torch.train.precision import einsum
 
 
 class ChannelLayerNorm(nn.Module):
@@ -112,18 +113,18 @@ class WindowedSelfAttention(nn.Module):
         k = self.conv_k(x).view(b, h, d, t)
         v = self.conv_v(x).view(b, h, d, t)
         scale = 1.0 / math.sqrt(d)
-        scores = torch.einsum("bhdt,bhds->bhts", q, k) * scale
+        scores = einsum("bhdt,bhds->bhts", q, k) * scale
 
         pos = torch.arange(t, device=x.device)
         delta = pos[None, :] - pos[:, None]  # (t_q, t_k) = s - t
         in_win = delta.abs() <= w
         r_idx = (delta + w).clamp(0, 2 * w)
-        rel_q = torch.einsum("bhdt,rd->bhtr", q, self.emb_rel_k[0])  # (B, H, T, 2w+1)
+        rel_q = einsum("bhdt,rd->bhtr", q, self.emb_rel_k[0])  # (B, H, T, 2w+1)
         rel_scores = rel_q.gather(-1, r_idx.expand(b, h, t, t))
         scores = scores + (rel_scores * scale).masked_fill(~in_win, 0.0)
         scores = scores.masked_fill(attn_mask[:, None] == 0, -1e4)
         p = self.drop(scores.softmax(-1))
-        out = torch.einsum("bhts,bhds->bhdt", p, v)
+        out = einsum("bhts,bhds->bhdt", p, v)
 
         # relative values: rel_w[b, h, t, r] = p[b, h, t, t + r - w]
         r = torch.arange(2 * w + 1, device=x.device)
@@ -131,7 +132,7 @@ class WindowedSelfAttention(nn.Module):
         valid = (s >= 0) & (s <= t - 1)
         rel_w = p.gather(-1, s.clamp(0, t - 1).expand(b, h, t, 2 * w + 1))
         rel_w = rel_w.masked_fill(~valid, 0.0)
-        out = out + torch.einsum("bhtr,rd->bhdt", rel_w, self.emb_rel_v[0])
+        out = out + einsum("bhtr,rd->bhdt", rel_w, self.emb_rel_v[0])
         return self.conv_o(out.reshape(b, c, t))
 
 

@@ -21,6 +21,7 @@ from torch import nn
 
 from facegantts_tpu_torch.ops.gn_mish import gn_mish_mask, mish_f32
 from facegantts_tpu_torch.ops.groupnorm import group_norm
+from facegantts_tpu_torch.train.precision import einsum
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -54,14 +55,16 @@ class FusedGroupNorm(nn.Module):
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:
-    """Sinusoidal positions for diffusion time (reference diffusion.py:19-30)."""
+    """Sinusoidal positions for diffusion time (reference diffusion.py:19-30),
+    in t's dtype: the JAX package's frequencies are a weakly typed f32, so a
+    bf16 t gives bf16 arguments and a bf16 embedding there too."""
     half = dim // 2
     freqs = torch.exp(
         -math.log(10000.0) * torch.arange(half, device=t.device, dtype=torch.float32)
         / (half - 1)
     )
-    args = scale * t.float()[:, None] * freqs[None, :]
-    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1).to(t.dtype)
+    args = scale * t[:, None] * freqs[None, :].to(t.dtype)
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
 class Block(nn.Module):
@@ -124,8 +127,8 @@ class LinearAttention(nn.Module):
         qkv = self.to_qkv(x).reshape(b, 3, self.heads, self.dim_head, f * t)
         q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]  # (B, H, D, N)
         k = k.softmax(dim=-1)  # over spatial positions
-        ctx = torch.einsum("bhdn,bhen->bhde", k, v)
-        out = torch.einsum("bhde,bhdn->bhen", ctx, q)
+        ctx = einsum("bhdn,bhen->bhde", k, v)
+        out = einsum("bhde,bhdn->bhen", ctx, q).to(x.dtype)
         return self.to_out(out.reshape(b, self.heads * self.dim_head, f, t))
 
 
@@ -136,7 +139,10 @@ class Rezero(nn.Module):
         self.g = nn.Parameter(torch.zeros(1))
 
     def forward(self, x):
-        return self.fn(x) * self.g
+        y = self.fn(x)
+        # the promotion made explicit: an f32 y times a bf16 g (train_bf16)
+        # would run torch's slower mixed-dtype kernel
+        return y * self.g.to(torch.promote_types(y.dtype, self.g.dtype))
 
 
 class Residual(nn.Module):
@@ -232,7 +238,10 @@ class GradLogPEstimator2d(nn.Module):
         else:
             h = torch.stack([mu, x], dim=1)
 
-        mask4 = mask[:, None]  # (B, 1, 1, T)
+        # (B, 1, 1, T) in h's dtype: 0 and 1 are exact in both, and a bf16
+        # mask on f32 maps (train_bf16) would run torch's slower mixed-dtype
+        # kernel in every Block
+        mask4 = mask[:, None].to(h.dtype)
         hiddens = []
         masks = [mask4]
         lens_by_level = [lens]

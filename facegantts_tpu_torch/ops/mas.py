@@ -121,8 +121,10 @@ def _launch_config(t_x: int, t_y: int):
 def maximum_path(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Max-likelihood monotonic alignment path of a (B, T_x, T_y) log-prior.
 
+    Any floating ``value`` and ``mask``: both are upcast to f32, as the JAX
+    package's ``maximum_path`` does, and the path returns in value's dtype.
     A CPU tensor takes :func:`maximum_path_ref`.  A CUDA tensor launches the
-    kernel or raises: value and mask contiguous f32 of one shape on one
+    kernel or raises: value and mask floating tensors of one shape on one
     device, T_x <= 1024, and the shared memory of one block enough for the
     (T_x, T_y) decision bits."""
     if value.device.type == "cpu":
@@ -133,9 +135,11 @@ def maximum_path(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"maximum_path: value and mask must be one (B, T_x, T_y) shape, "
                          f"got {tuple(value.shape)} and {tuple(mask.shape)}")
     for name, v in (("value", value), ("mask", mask)):
-        if v.dtype != torch.float32 or not v.is_contiguous() or v.device != value.device:
-            raise ValueError(f"maximum_path: {name} must be a contiguous float32 tensor "
+        if not v.is_floating_point() or v.device != value.device:
+            raise ValueError(f"maximum_path: {name} must be a floating tensor "
                              f"on {value.device}")
+    dtype = value.dtype
+    value, mask = value.float().contiguous(), mask.float().contiguous()
     b, t_x, t_y = value.shape
     if value.numel() == 0 or t_x > 1024 or b > 2**30:
         raise ValueError(f"maximum_path: unsupported shape {tuple(value.shape)}")
@@ -151,4 +155,4 @@ def maximum_path(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"maximum_path: CUDA kernel launch failed (cudaError {err})")
     kernels.LAUNCHES[NAME] += 1
-    return path
+    return path.to(dtype)

@@ -20,11 +20,24 @@ whole.  The crop offset, the diffusion time and the noise come from the
 ``torch.Generator`` the caller passes, or are injected (``draws``); dropout
 draws from torch's default generator of the device, which ``train/loop.py``
 seeds.  The JAX ``micro_unroll`` and ``fast_rng`` are XLA / TPU scheduling
-and random-bit knobs with the same math: they have no effect here.  Not
-ported yet, and raising: data parallelism over NCCL, mixed-precision
-training (``train_bf16``, ROADMAP item 11) and, of the GAN step,
-``disc_bf16``, ``adv_grad_through_sampler``, ``grad_remat``, spectral norm
-and the ``tpu_opt`` discriminator (ROADMAP items 12 and 18).
+and random-bit knobs with the same math: they have no effect here.
+
+The JAX package's options of the two steps run as they do there:
+
+- ``train_bf16``: the losses of both steps through ``train/precision.py``
+  (bf16 parameters and model state, flax's dtype promotion, the loss parts
+  back in f32; master parameters, Adam moments, gradient sums and the clip
+  in f32);
+- ``disc_bf16``: the D phase alone so (also the R1 double backward), with
+  the logits in f32 before the loss;
+- ``adv_grad_through_sampler``: the G phase resamples its fake with
+  gradient through the reverse sampler and gates on ``g_loss``;
+- ``grad_remat``: each phase's loss under ``torch.utils.checkpoint``; the
+  recompute starts the explicit generator from its state at the forward.
+
+Not ported, and raising: data parallelism over NCCL, the spectral-norm
+discriminator, which the JAX package's GAN step cannot run (ROADMAP §3),
+and the ``tpu_opt`` discriminator (ROADMAP item 18).
 """
 
 import copy
@@ -33,6 +46,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from facegantts_tpu_torch.config import Config
 from facegantts_tpu_torch.models.discriminator import SpectrogramDiscriminator
@@ -43,34 +57,32 @@ from facegantts_tpu_torch.train.optim import (
     GeneratorOptimizer,
     gan_group,
 )
+from facegantts_tpu_torch.train.precision import call_as_is, mp_caster
 from facegantts_tpu_torch.train.state import Batch, TrainState
 
 METRICS = ("duration_loss", "prior_loss", "diffusion_loss", "spk_loss", "total_loss")
 LOSS_TYPES = ("hinge", "mse", "bce")
 
-# option -> (value that is not ported, what to do instead)
+# option -> (value that is not ported, why)
 _UNPORTED = {
-    "train_bf16": (1, "mixed-precision training is not ported yet (ROADMAP item 11); "
-                      "train in f32"),
-    "disc_bf16": (1, "the bf16 discriminator phase is not ported yet (ROADMAP item 12)"),
-    "adv_grad_through_sampler": (1, "differentiating through the sampler is not ported yet "
-                                    "(ROADMAP item 12)"),
-    "grad_remat": (1, "rematerialised GAN phases are not ported yet (ROADMAP item 12)"),
-    "use_spectral_norm": (1, "the spectral-norm discriminator is not ported yet "
-                             "(ROADMAP item 12)"),
+    "use_spectral_norm": (1, "the JAX package's GAN step cannot run the spectral-norm "
+                             "discriminator (its init_state keeps only the discriminator's "
+                             "'params', facegantts_tpu/train/step.py:91, and flax's "
+                             "SpectralNorm needs its batch_stats: every disc.apply raises "
+                             "InvalidRngError: SpectralNorm_0 needs PRNG for \"params\"), so "
+                             "there is no reference to port it against (ROADMAP §3); use "
+                             "weight norm (use_spectral_norm=0)"),
     "disc_family": ("tpu_opt", "the tpu_opt discriminator is not ported yet "
                                "(ROADMAP item 18)"),
 }
-_GAN_ONLY = ("disc_bf16", "adv_grad_through_sampler", "grad_remat", "use_spectral_norm",
-             "disc_family")
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise NotImplementedError, naming the option and its ROADMAP item,
-    for a setting of ``cfg`` that the port does not run yet."""
+    """Raise NotImplementedError, naming the option and why, for a GAN
+    setting of ``cfg`` that the port does not run."""
+    if not cfg.use_gan:
+        return
     for name, (bad, why) in _UNPORTED.items():
-        if name in _GAN_ONLY and not cfg.use_gan:
-            continue
         if getattr(cfg, name) == bad:
             raise NotImplementedError(f"{name}={bad}: {why}")
 
@@ -99,7 +111,8 @@ def _metrics(parts) -> Dict[str, torch.Tensor]:
 
 
 def make_plain_train_step(cfg: Config, device) -> Tuple[Callable, Callable]:
-    """(train_step, val_step) for ``use_gan=0`` on ``device``.
+    """(train_step, val_step) for ``use_gan=0`` on ``device``; with
+    ``train_bf16`` the losses run in mixed precision (``train/precision.py``).
 
     ``train_step(state, batch, generator) -> (state, metrics)`` updates the
     state in place; ``val_step(state, batch, generator) -> metrics``.  The
@@ -107,12 +120,13 @@ def make_plain_train_step(cfg: Config, device) -> Tuple[Callable, Callable]:
     the four losses, ``total_loss`` and, in training, ``grad_norm``."""
     check_ported(cfg)
     device = torch.device(device)
+    down, up, call = mp_caster(cfg.train_bf16)
 
     def loss(model: FaceTTS, batch: Batch, generator):
         b = batch.to(device)
-        parts, _ = model.compute_loss(b.x, b.x_len, b.y, b.y_len, b.spk, cfg.out_size,
-                                      generator=generator)
-        return parts
+        parts, _ = call(model, b.x, b.x_len, down(b.y), b.y_len, down(b.spk), cfg.out_size,
+                        method="compute_loss", generator=generator)
+        return up(parts)
 
     def train_step(state: TrainState, batch: Batch, generator: torch.Generator):
         state.model.train()
@@ -229,13 +243,21 @@ def make_gan_loss_fns(cfg: Config):
     - ``d_loss_fn(disc, y_real, fake, use_r1)`` -> (d_loss, metrics,
       (fake_logits, fake_fmap) detached, for the G phase);
     - ``g_loss_fn(model, disc, mb, fake, train_disc, reuse=None,
-      generator=None, offset=None, t=None, z=None)`` -> (g_loss, metrics).
+      generator=None, offset=None, t=None, z=None, noise=None)`` ->
+      (g_loss, metrics); ``noise`` is the resampled fake's under
+      ``adv_grad_through_sampler``.
 
-    ``mb`` is a :class:`Batch` of tensors on the model's device."""
+    ``mb`` is a :class:`Batch` of tensors on the model's device.  With
+    ``train_bf16`` the G phase runs in mixed precision and so does the D
+    phase, as it does alone under ``disc_bf16`` (``train/precision.py``)."""
     if cfg.disc_loss_type not in LOSS_TYPES:
         raise ValueError(f"disc_loss_type={cfg.disc_loss_type!r}: expected one of {LOSS_TYPES}")
     check_ported(cfg.replace(use_gan=1))
     loss_type = cfg.disc_loss_type
+    down, up, call = mp_caster(cfg.train_bf16)
+    d_down, _, d_call = mp_caster(cfg.disc_bf16 or cfg.train_bf16)
+    # the sampler with gradient: bf16 with gan_sampler_bf16, else as the G phase
+    s_down, _, s_call = mp_caster(cfg.gan_sampler_bf16 or cfg.train_bf16)
     replicas: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
     def bf16_replica(model: FaceTTS) -> FaceTTS:
@@ -256,18 +278,38 @@ def make_gan_loss_fns(cfg: Config):
         face_tts_w_discriminator.py:163-165): ``train_fake_timesteps``
         deterministic reverse steps at temperature 1 and length_scale 1, at
         the batch's mel bucket.  With ``gan_sampler_bf16`` (the default) the
-        whole model runs in bfloat16; the fake returns in f32.  ``noise``
-        (B, F, T) standard normal replaces the draw from ``generator``."""
-        net = bf16_replica(model) if cfg.gan_sampler_bf16 else model
+        whole model runs in bfloat16, every layer included; the fake returns
+        in f32.  ``noise`` (B, F, T) standard normal replaces the draw from
+        ``generator``."""
+        if cfg.gan_sampler_bf16:
+            net, spk, run = bf16_replica(model), mb.spk.to(torch.bfloat16), call_as_is
+        else:
+            net, spk, run = model, down(mb.spk), call
         was_training = net.training
         net.eval()
         try:
             with torch.no_grad():
-                spk = mb.spk.to(torch.bfloat16) if cfg.gan_sampler_bf16 else mb.spk
-                _, dec, _, _ = net(mb.x, mb.x_len, cfg.train_fake_timesteps, mb.y.shape[-1],
-                                   1.0, False, spk, 1.0, generator=generator, noise=noise)
+                _, dec, _, _ = run(net, mb.x, mb.x_len, cfg.train_fake_timesteps,
+                                   mb.y.shape[-1], 1.0, False, spk, 1.0, generator=generator,
+                                   noise=noise)
         finally:
             net.train(was_training)
+        return dec.float()
+
+    def sample_fake_grad(model: FaceTTS, mb: Batch, generator, noise) -> torch.Tensor:
+        """The fake of ``adv_grad_through_sampler``: the sampler of
+        :func:`sample_fake` through the live parameters, with gradient
+        through the reverse steps into the encoder's ``mu_x`` and the U-Net
+        (the ceiled durations carry none, SyncNet is frozen), dropout off
+        as in the JAX sampler."""
+        was_training = model.training
+        model.eval()
+        try:
+            _, dec, _, _ = s_call(model, mb.x, mb.x_len, cfg.train_fake_timesteps,
+                                  mb.y.shape[-1], 1.0, False, s_down(mb.spk), 1.0,
+                                  generator=generator, noise=noise)
+        finally:
+            model.train(was_training)
         return dec.float()
 
     def d_loss_fn(disc: SpectrogramDiscriminator, y_real: torch.Tensor, fake: torch.Tensor,
@@ -275,17 +317,21 @@ def make_gan_loss_fns(cfg: Config):
         """Discriminator loss; with ``use_r1`` the real logits and R1's
         input gradient come from one forward (the reference runs a second
         forward for R1, face_tts_w_discriminator.py:191-201), and the loss
-        gains ``effective_r1_gamma * 0.5 * r1``."""
-        y_in = y_real.detach()[:, None]
+        gains ``effective_r1_gamma * 0.5 * r1``.  Under ``disc_bf16`` or
+        ``train_bf16`` the forwards, the backward and R1's double backward
+        run in bf16; R1 sums its squares in f32, and the logits are cast to
+        f32 before the loss and the accuracy."""
+        y_in = d_down(y_real.detach())[:, None]
         if use_r1:
             y_in.requires_grad_(True)
-            _, real_logits = disc(y_in)
+            _, real_logits = d_call(disc, y_in)
             (g,) = torch.autograd.grad(real_logits.sum(), y_in, create_graph=True)
-            r1 = g.square().sum(dim=(1, 2, 3)).mean()
+            r1 = g.float().square().sum(dim=(1, 2, 3)).mean()
         else:
-            _, real_logits = disc(y_in)
+            _, real_logits = d_call(disc, y_in)
             r1 = torch.zeros((), device=y_real.device)
-        fake_fmap, fake_logits = disc(fake.detach()[:, None])
+        fake_fmap, fake_logits = d_call(disc, d_down(fake.detach())[:, None])
+        real_logits, fake_logits = real_logits.float(), fake_logits.float()
         d_loss = _disc_loss(loss_type, real_logits, fake_logits)
         acc = _disc_accuracy(loss_type, real_logits, fake_logits)
         if use_r1:
@@ -297,42 +343,52 @@ def make_gan_loss_fns(cfg: Config):
 
     def g_loss_fn(model: FaceTTS, disc: SpectrogramDiscriminator, mb: Batch,
                   fake: torch.Tensor, train_disc: bool, reuse=None,
-                  generator: Optional[torch.Generator] = None, offset=None, t=None, z=None):
+                  generator: Optional[torch.Generator] = None, offset=None, t=None, z=None,
+                  noise=None):
         """Generator loss: ``lambda_adv * adv`` + the FaceTTS losses at full
         length (``out_size=None``, reference :285-287; ``gan_g_crop=1`` takes
-        the 2-second crop) + the opt-in fm / pitch / energy terms.  The
-        adversarial, fm, pitch and energy terms are values of the no-grad
-        fake and carry no generator gradient, so ``g_guard_loss`` (the
-        non-finite gate) is the FaceTTS total: a saturated discriminator
-        that sends adv to inf does not freeze the generator.  Dropout
-        follows ``model``'s mode."""
+        the 2-second crop) + the opt-in fm / pitch / energy terms.  With the
+        no-grad sampler the adversarial, fm, pitch and energy terms are
+        values of the fake and carry no generator gradient, so
+        ``g_guard_loss`` (the non-finite gate) is the FaceTTS total: a
+        saturated discriminator that sends adv to inf does not freeze the
+        generator.  Under ``adv_grad_through_sampler`` the phase resamples
+        its own fake with gradient (``fake`` and ``reuse`` go unused), the
+        adversarial term trains the generator, and the gate is ``g_loss``.
+        Dropout follows ``model``'s mode."""
+        grad_fake = bool(cfg.adv_grad_through_sampler)
+        if grad_fake:
+            fake, reuse = sample_fake_grad(model, mb, generator, noise), None
+        fake = down(fake)
         zero = torch.zeros((), device=mb.y.device)
         adv, fm, pitch, energy, fake_fmap = zero, zero, zero, zero, None
         if train_disc:
             if reuse is None:
-                with torch.no_grad():
-                    fake_fmap, fake_logits = disc(fake[:, None])
+                with torch.set_grad_enabled(grad_fake):
+                    fake_fmap, fake_logits = call(disc, fake[:, None])
             else:
                 fake_logits, fake_fmap = reuse
-            adv = _gen_adv_loss(loss_type, fake_logits)
+            adv = up(_gen_adv_loss(loss_type, fake_logits))
             if cfg.use_fm_loss:
                 with torch.no_grad():
-                    real_fmap, _ = disc(mb.y[:, None])
-                fm = _feature_matching(real_fmap, fake_fmap)
+                    real_fmap, _ = call(disc, down(mb.y)[:, None])
+                fm = up(_feature_matching(real_fmap, fake_fmap))
+        y = down(mb.y)
         if cfg.use_pitch_loss:
-            pitch = _contour_loss(_soft_pitch(mb.y), _soft_pitch(fake), mb.y_len)
+            pitch = up(_contour_loss(_soft_pitch(y), _soft_pitch(fake), mb.y_len))
         if cfg.use_energy_loss:
-            energy = _contour_loss(_frame_energy(mb.y), _frame_energy(fake), mb.y_len)
+            energy = up(_contour_loss(_frame_energy(y), _frame_energy(fake), mb.y_len))
         out_size = cfg.out_size if cfg.gan_g_crop else None
-        parts, _ = model.compute_loss(mb.x, mb.x_len, mb.y, mb.y_len, mb.spk, out_size,
-                                      offset=offset, t=t, z=z, generator=generator)
+        parts, _ = call(model, mb.x, mb.x_len, y, mb.y_len, down(mb.spk), out_size,
+                        method="compute_loss", offset=offset, t=t, z=z, generator=generator)
+        parts = up(parts)
         g_loss = (cfg.lambda_adv * adv + parts.dur_loss + parts.prior_loss + parts.diff_loss
                   + parts.spk_loss + cfg.use_fm_loss * fm + cfg.use_pitch_loss * pitch
                   + cfg.use_energy_loss * energy)
         metrics = {"adv_loss": adv, "fm_loss": fm, "pitch_loss": pitch, "energy_loss": energy,
                    "duration_loss": parts.dur_loss, "prior_loss": parts.prior_loss,
                    "diffusion_loss": parts.diff_loss, "spk_loss": parts.spk_loss,
-                   "g_loss": g_loss, "g_guard_loss": parts.total}
+                   "g_loss": g_loss, "g_guard_loss": g_loss if grad_fake else parts.total}
         return g_loss, {k: v.detach() for k, v in metrics.items()}
 
     return sample_fake, d_loss_fn, g_loss_fn
@@ -355,8 +411,9 @@ def make_gan_train_step(cfg: Config, device) -> Tuple[Callable, Callable]:
     the parameters' ``.grad``: ``train_disc`` (epoch >= warmup_disc_epochs), ``train_gen``
     (epoch >= freeze_gen_epochs), ``use_r1`` (see ``train/loop.py:
     gan_flags``).  ``draws``, one dict a micro-batch, injects the sampler's
-    ``noise`` and the G phase's ``offset`` / ``t`` / ``z`` in place of draws
-    from ``generator`` (tests feed both frameworks the same).  Metrics are
+    ``noise``, the G phase's ``offset`` / ``t`` / ``z`` and, under
+    ``adv_grad_through_sampler``, its resampled fake's ``g_noise`` in place
+    of draws from ``generator`` (tests feed both frameworks the same).  Metrics are
     0-d device tensors, means over the micro-batches.
     ``val_step(state, batch, generator, train_disc=True) -> metrics``."""
     if cfg.micro_batch_size_gen not in (0, cfg.micro_batch_size):
@@ -366,6 +423,26 @@ def make_gan_train_step(cfg: Config, device) -> Tuple[Callable, Callable]:
     device = torch.device(device)
     sample_fake, d_loss_fn, g_loss_fn = make_gan_loss_fns(cfg)
     loss_type = cfg.disc_loss_type
+    d_fn, g_fn = d_loss_fn, g_loss_fn
+    if cfg.grad_remat:
+        # each phase's forward is recomputed in its backward (the JAX
+        # package's jax.checkpoint); checkpoint restores dropout's default
+        # generators for the recompute, and the G phase restores its explicit
+        # generator itself, so the recompute draws the forward's values and
+        # leaves the generator where the forward left it
+        def d_fn(*args):
+            return checkpoint(d_loss_fn, *args, use_reentrant=False)
+
+        def g_fn(model, disc, mb, fake, train_disc, reuse, generator, **kwargs):
+            start = None if generator is None else generator.get_state()
+
+            def g_loss_from_start(*args):
+                if start is not None:
+                    generator.set_state(start)
+                return g_loss_fn(*args, generator, **kwargs)
+
+            return checkpoint(g_loss_from_start, model, disc, mb, fake, train_disc, reuse,
+                              use_reentrant=False)
 
     def grads(state: TrainState, batch: Batch, generator, train_disc: bool, use_r1: bool,
               draws=None):
@@ -385,16 +462,18 @@ def make_gan_train_step(cfg: Config, device) -> Tuple[Callable, Callable]:
             fake = sample_fake(model, mb, generator, noise=dr.get("noise"))
             m, reuse = {}, None
             if train_disc:
-                d_loss, d_m, reuse = d_loss_fn(disc, mb.y, fake, use_r1)
+                d_loss, d_m, reuse = d_fn(disc, mb.y, fake, use_r1)
                 ok = torch.isfinite(d_loss)
                 _accumulate(d_acc, torch.autograd.grad(d_loss, d_params), ok)
                 m.update(d_m, d_loss=torch.where(ok, d_loss.detach(), 0.0),
                          d_nan_skipped=(~ok).float())
             else:
                 m.update(d_loss=zero, disc_acc=zero, r1_penalty=zero, d_nan_skipped=zero)
+            g_dr = {k: dr[k] for k in ("offset", "t", "z") if k in dr}
+            if "g_noise" in dr:
+                g_dr["noise"] = dr["g_noise"]
             model.train()
-            g_loss, g_m = g_loss_fn(model, disc, mb, fake, train_disc, reuse, generator,
-                                    offset=dr.get("offset"), t=dr.get("t"), z=dr.get("z"))
+            g_loss, g_m = g_fn(model, disc, mb, fake, train_disc, reuse, generator, **g_dr)
             ok_g = torch.isfinite(g_m["g_guard_loss"])
             _accumulate(g_acc, torch.autograd.grad(g_loss, g_params, allow_unused=True), ok_g)
             m.update(g_m, g_nan_skipped=(~ok_g).float())

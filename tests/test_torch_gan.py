@@ -187,13 +187,20 @@ def test_discriminator_matches_jax(stride):
 
 
 def test_discriminator_refuses_unported():
-    with pytest.raises(NotImplementedError, match="spectral.*ROADMAP item 12"):
+    """Spectral norm (which the JAX package's GAN step cannot run) and the
+    tpu_opt family raise by name; the speaker input is ported
+    (tests/test_torch_precision.py) and needs a discriminator built with
+    one."""
+    with pytest.raises(NotImplementedError, match="spectral.*JAX package's GAN step cannot"):
         SpectrogramDiscriminator(use_spectral_norm=1)
     with pytest.raises(NotImplementedError, match="tpu_opt.*ROADMAP item 18"):
         SpectrogramDiscriminator(family="tpu_opt")
     disc = SpectrogramDiscriminator(base_channels=4, num_layers=1)
-    with pytest.raises(NotImplementedError, match="speaker-embedding.*ROADMAP item 12"):
+    with pytest.raises(ValueError, match="without a speaker input"):
         disc(torch.zeros(1, 1, 16, 8), torch.zeros(1, 4))
+    disc = SpectrogramDiscriminator(base_channels=4, num_layers=1, spk_emb_dim=4)
+    fmap, logits = disc(torch.zeros(1, 1, 32, 8), torch.ones(1, 4))
+    assert len(fmap) == 2 and torch.isfinite(logits).all()
 
 
 # ---------------------------------------------------------------------------

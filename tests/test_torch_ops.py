@@ -242,6 +242,73 @@ def test_gn_mish_bwd_ref_matches_jax_vjp(shape):
                                        atol=2e-5 * np.abs(want[0]).max())
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 26, 64), (1, 4, 16, 128), (2, 4, 10, 256),
+                                   (3, 6, 20, 32)])
+def test_gn_mish_bwd_ref_matches_jax_vjp_bf16(shape):
+    """The closed-form backward for a bf16 x and upstream gradient (the
+    mixed-precision paths' dtype) against jax.vjp of _xla_chain in bf16:
+    both upcast x and g exactly and compute in f32, so dscale and dbias
+    keep the f32 bar (2e-5 of the largest) and dx differs by at most one
+    rounding to bf16 (2^-7 of each value, plus the f32 bar)."""
+    import jax
+    import jax.numpy as jnp
+
+    from facegantts_tpu.ops.gn_mish import _xla_chain
+
+    x, scale, bias, lens, g = _bwd_inputs(shape, seed=sum(shape) + 1)
+    xb, gb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a, s, b: _xla_chain(a, s, b, jnp.asarray(lens), 8, 1e-5),
+                     xb, jnp.asarray(scale), jnp.asarray(bias))
+    want = vjp(gb)
+    assert want[0].dtype == jnp.bfloat16
+    want = [np.asarray(w, np.float32) for w in want]
+
+    def nchw(a):
+        return torch.from_numpy(np.asarray(a.astype(jnp.float32)).transpose(0, 3, 1, 2)
+                                .copy()).to(torch.bfloat16)
+
+    xt, st, bt, lt = nchw(xb), torch.from_numpy(scale), torch.from_numpy(bias), torch.from_numpy(lens)
+    stats = tgn.group_stats(xt, 8, 1e-5)
+    dx, dscale, dbias = tgn.gn_mish_mask_bwd_ref(nchw(gb), xt, st, bt, lt, stats, 8)
+    assert dx.dtype == torch.bfloat16 and dscale.dtype == dbias.dtype == torch.float32
+    got = [dx.float().numpy().transpose(0, 2, 3, 1), dscale.numpy(), dbias.numpy()]
+    for name, a, w in zip(("dx", "dscale", "dbias"), got, want):
+        rtol = 2**-7 if name == "dx" else 0
+        np.testing.assert_allclose(a, w, rtol=rtol, atol=2e-5 * np.abs(w).max(), err_msg=name)
+
+
+def test_gn_mish_grad_matches_jax_bf16():
+    """K1's gradient through the port's wrapper for a bf16 x (the plain
+    chain on the CPU) against jax.grad of the JAX gn_mish_mask in bf16:
+    dx within one bf16 rounding of each value (2^-7) plus 2e-5 of the
+    largest, dscale and dbias (f32) within 2e-3 of the largest (the
+    upstream sin(y) rounds y to bf16 on each side, and its cosine then
+    differs by up to 2^-8 of a value)."""
+    import jax
+    import jax.numpy as jnp
+
+    from facegantts_tpu.ops.gn_mish import gn_mish_mask as jgn
+
+    x, scale, bias, lens = _gn_inputs((2, 4, 12, 64), seed=14)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = jax.grad(
+        lambda a, s, b: jnp.sum(jnp.sin(jgn(a, s, b, jnp.asarray(lens), 8, 1e-5)
+                                        .astype(jnp.float32))),
+        (0, 1, 2))(xb, jnp.asarray(scale), jnp.asarray(bias))
+    assert want[0].dtype == jnp.bfloat16
+    xt = torch.from_numpy(np.asarray(xb.astype(jnp.float32)).transpose(0, 3, 1, 2).copy())
+    args = [v.clone().requires_grad_() for v in (xt.to(torch.bfloat16), torch.from_numpy(scale),
+                                                 torch.from_numpy(bias))]
+    torch.sin(tgn.gn_mish_mask(*args, torch.from_numpy(lens)).float()).sum().backward()
+    assert args[0].grad.dtype == torch.bfloat16
+    dx = args[0].grad.float().numpy().transpose(0, 2, 3, 1)
+    w = np.asarray(want[0], np.float32)
+    np.testing.assert_allclose(dx, w, rtol=2**-7, atol=2e-5 * np.abs(w).max())
+    for g, w in zip(args[1:], want[1:]):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.grad.numpy(), w, rtol=0, atol=2e-3 * np.abs(w).max())
+
+
 def test_gn_mish_cpu_grad_goes_through_function():
     """On the CPU a gradient goes through the same autograd Function as on
     the card, with the plain forward and the closed-form backward."""
@@ -431,6 +498,37 @@ def test_gn_mish_cuda_backward_step_shapes(shape, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", K1_BWD_SHAPES[6:])
+def test_gn_mish_cuda_bf16_grad_plain_crop_shapes(shape):
+    """K1's bf16 backward through the autograd Function at the plain step's
+    five shapes (B=64, the 128-frame crop), ragged lengths: one backward
+    launch, its gradients against the plain backward on the same forward
+    statistics (dx 2^-8 of the largest value, one bf16 rounding; dscale and
+    dbias 1e-4, f32 sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    b, c, f, t = shape
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
+    g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    scale = torch.randn(c, generator=gen, device="cuda") * 6
+    bias = torch.randn(c, generator=gen, device="cuda") * 8
+    lens = torch.tensor(_ragged(b, t), dtype=torch.int32, device="cuda")
+    args = [v.clone().requires_grad_() for v in (x, scale, bias)]
+    before = kernels.LAUNCHES[tgn.BWD_NAME]
+    tgn.gn_mish_mask(*args, lens).backward(g)
+    assert kernels.LAUNCHES[tgn.BWD_NAME] == before + 1
+    assert args[0].grad.dtype == torch.bfloat16
+    want = tgn.gn_mish_mask_bwd_ref(g, x, scale, bias, lens, tgn.group_stats(x))
+    torch.cuda.synchronize()
+    for name, a, w, tol in zip(("dx", "dscale", "dbias"), (v.grad for v in args), want,
+                               (2**-8, 1e-4, 1e-4)):
+        a, w = a.float(), w.float()
+        top = max(1.0, w.abs().max().item())
+        assert (a - w).abs().max().item() <= tol * top, (name, shape)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gn_mish_cuda_backward_edges(dtype):
     """The backward kernel at T of 1, 3, 32 and 109 (a 16-byte unit then
@@ -544,6 +642,30 @@ _MAS_EDGES = [(2, 1, 40, [1, 1], [40, 17]), (3, 31, 29, [31, 20, 5], [29, 29, 3]
               (2, 5, 7, [5, 2], [7, 7]), (2, 100, 257, [100, 64], [257, 100]),
               (2, 256, 872, [256, 200], [872, 500]), (2, 512, 600, [512, 300], [600, 450]),
               (2, 1024, 960, [900, 1024], [960, 960])]
+
+
+@pytest.mark.gpu
+def test_maximum_path_cuda_bf16_log_prior():
+    """A bf16 log-prior (and a bf16 mask, as the mixed-precision step's
+    masks are) upcasts to f32 on the card: one launch, the path of the f32
+    kernel on the upcast values, returned in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from facegantts_tpu_torch.ops import mas as tmas
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, t_x, t_y = 4, 40, 200
+    v = (torch.randn(b, t_x, t_y, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    tx = torch.tensor([40, 31, 7, 1], device="cuda")
+    ty = torch.tensor([200, 150, 60, 9], device="cuda")
+    m = ((torch.arange(t_x, device="cuda")[None, :, None] < tx[:, None, None])
+         & (torch.arange(t_y, device="cuda")[None, None, :] < ty[:, None, None]))
+    before = kernels.LAUNCHES[tmas.NAME]
+    got = tmas.maximum_path(v, m.to(torch.bfloat16))
+    assert kernels.LAUNCHES[tmas.NAME] == before + 1 and got.dtype == torch.bfloat16
+    want = tmas.maximum_path_ref(v.float(), m.float())
+    torch.cuda.synchronize()
+    assert torch.equal(got.float(), want)
 
 
 @pytest.mark.gpu

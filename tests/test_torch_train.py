@@ -388,15 +388,45 @@ def test_train_entry_point_cpu(tmp_path):
 @pytest.mark.parametrize("option, value", [
     ("train_bf16", "1"), ("use_spectral_norm", "1"), ("disc_family", "tpu_opt"),
     ("disc_bf16", "1"), ("adv_grad_through_sampler", "1"), ("grad_remat", "1")])
-def test_train_refuses_gan_and_bf16(option, value):
-    """``use_gan=1`` trains (tests/test_torch_gan.py); mixed-precision
-    training and the GAN options not ported yet raise by name, before
-    anything is built."""
+def test_train_refuses_gan_and_bf16(option, value, tmp_path):
+    """The GAN trainer under each of these options: the four the port runs
+    (mixed precision, the bf16 D phase, the differentiable sampler, remat)
+    take one step of ``train()`` at TINY on the CPU and log finite metrics,
+    and ``train_bf16`` also runs the plain step; the spectral-norm and
+    ``tpu_opt`` discriminators still raise by name, before anything is
+    built (the JAX package's GAN step cannot run spectral norm)."""
+    from facegantts_tpu_torch.data.dataset import SyntheticDataset
     from facegantts_tpu_torch.train.loop import train
     from facegantts_tpu_torch.train.step import make_plain_train_step
 
-    with pytest.raises(NotImplementedError, match=f"{option}={value}: .*not ported yet"):
-        train(default_config(env=dict(TINY, use_gan="1", **{option: value})), device="cpu")
+    env = dict(TINY, use_gan="1", disc_base_channels="8", disc_num_layers="2",
+               kernel_height="5", kernel_width="3", disc_padding="2", micro_batch_size="2",
+               spk_emb="face", batch_size="4", num_gpus="1", log_every_n_steps="1",
+               mel_buckets="64", text_buckets="32", **{option: value})
+    if option in ("use_spectral_norm", "disc_family"):
+        why = "JAX package's GAN step cannot run" if option == "use_spectral_norm" else (
+            "not ported yet")
+        with pytest.raises(NotImplementedError, match=f"{option}={value}: .*{why}"):
+            train(default_config(env=env), device="cpu")
+        return
+    kw = dict(n_mels=128, min_frames=40, max_frames=60)
+    data = SyntheticDataset(n_items=4, **kw), SyntheticDataset(n_items=4, seed=1, **kw)
+    uses = ["1", "0"] if option == "train_bf16" else ["1"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the parallel test run shares the host's cores
+    try:
+        for use_gan in uses:
+            train(default_config(env=dict(env, use_gan=use_gan)), str(tmp_path / use_gan), 1,
+                  *data, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    for use_gan in uses:
+        work = tmp_path / use_gan
+        with open(work / "metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        step = [r for r in recs if "train/total_loss" in r or "train/g_loss" in r]
+        assert [r["step"] for r in step] == [1]
+        vals = {k: v for k, v in step[0].items() if k.startswith("train/")}
+        assert vals and all(np.isfinite(v) for v in vals.values()), vals
     if option == "train_bf16":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_plain_train_step(default_config(env=dict(TINY, train_bf16="1")), "cpu")
+        make_plain_train_step(default_config(env=dict(TINY, train_bf16="1")), "cpu")
