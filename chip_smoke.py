@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (facegantts_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--old-k1=DIR]
+    python3 chip_smoke.py [--old-k1=DIR] [--old-step=FILE]
 
 Phases, each of which raises on a failed check (the script then exits
 non-zero and prints no result line):
@@ -50,12 +50,18 @@ non-zero and prints no result line):
    ``SyntheticDataset`` (seed 0), 4 steps and the GAN validation; every
    metric finite, R1 applied, no micro-batch skipped, SyncNet unchanged,
    the discriminator, encoder and decoder moved, and with the counts zeroed
-   just before: per step 500 K1 forwards (400 of them bf16), 100 K1
-   backwards and 4 MAS launches, per validation batch 125 K1 forwards (100
-   bf16) and one MAS.  Then 6 steps on one batch with R1 on and off in turns
+   just before: per step 500 K1 forwards (none in bf16: the bf16 sampler
+   runs the U-Net in f32 with bf16 weights, as the JAX package's does), 100
+   K1 backwards and 4 MAS launches, per validation batch 125 K1 forwards
+   and one MAS.  Then 6 steps on one batch with R1 on and off in turns
    (each step's launches asserted alone), step times and peak memory, a
-   ``torch.profiler`` breakdown of one warm R1 step, and K1 (bf16 forward at
-   the five B=16 Ty=436 U-Net shapes; f32 forward and backward through the
+   ``torch.profiler`` breakdown of one warm R1 step, with ``--old-step=FILE``
+   (an earlier ``train/step.py``, e.g. ``git show
+   <rev>:facegantts_tpu_torch/train/step.py`` into a git-ignored file) that
+   step's no-grad sampler against this one on one micro-batch in turns
+   (card time; device time by part and K1's calls by dtype, profiled), and
+   K1 (f32 forward at the five B=16 Ty=436 U-Net shapes, the sampler's;
+   f32 forward and backward through the
    autograd Function at those and at (16, 64, 128, 872), with the device
    time alone of the backward and of the forward + backward pair through
    ``backward()`` beside the library pair's) and MAS (the step's own
@@ -89,9 +95,9 @@ non-zero and prints no result line):
    is restored into a fresh state (ms): model, discriminator, both
    optimizers' moments and counts and the step bitwise equal; one R1 step
    from each, same batch and draws, losses within 1e-5 relative, each 500
-   K1 forwards, 100 backwards and 4 MAS launches; ``train`` with
-   ``resume_from=<work>/last`` two steps on (logged steps, ``last/``,
-   launches); then in bf16 and f32 a Synthesizer from
+   K1 forwards (none in bf16), 100 backwards and 4 MAS launches; ``train``
+   with ``resume_from=<work>/last`` two steps on (logged steps, ``last/``,
+   launches, no K1 call in bf16); then in bf16 and f32 a Synthesizer from
    ``restore_generator_state_dict`` and a bshall vocoder file with weight
    norm (``load_hifigan_state_dict``) against ``update_params`` on a random
    one (the same waveform), 250 K1 launches a request, warm latency;
@@ -126,6 +132,21 @@ non-zero and prints no result line):
    five B=16 Ty=436 shapes against ``gn_mish_mask_bwd_ref`` (the bars of
    ``k1_bwd_case``), with card and device times, the plain version's and
    the bound.
+14. the data and evaluation path: a small LRS2-shaped corpus written under
+   ``runs/chip_smoke_corpus`` (train 64, val 8 and test 8 clips over 8
+   speakers, 1.2-5.6 s of voiced harmonic segments at F0 90-250 Hz with
+   noise and pauses, a ``Text:`` line and the ``test/`` face as jpg each),
+   packed by ``data.preprocess.main`` with the mel op on the card (every
+   clip's mel held to the formula in float64 with TF32 off; ms a clip by
+   part); ``train/loop.train`` on the shards at the Config widths with
+   ``use_gan=0``, batch 16, two steps and the in-training evaluation at the
+   second (the Config's four items, WORLD F0, bf16 synthesis): its rows in
+   ``metrics.jsonl`` finite, ``eval_output.txt`` with its provenance and
+   keys, the four samples written, and with the counts zeroed just before
+   the evaluation 250 bf16 K1 forwards an item and no MAS; its time by
+   part; then the ``evaluate`` CLI over those samples against the corpus
+   wavs of the val clips and the ``acc_measure`` CLI on the test split
+   (n_way 5, 100 trials).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -524,7 +545,7 @@ def check_gan_defaults(cfg):
         raise AssertionError(f"[GAN] not the Config defaults: {bad}")
 
 
-def gan_phase(work_dir):
+def gan_phase(work_dir, old_step=None):
     """The GAN path: ``train/loop.train`` at the Config defaults with
     ``use_gan=1`` (published widths, batch 64 in 4 micro-batches of 16, R1 on
     every step) for GAN_STEPS steps and its GAN validation, then GAN_TURNS
@@ -552,7 +573,7 @@ def gan_phase(work_dir):
     check_gan_defaults(cfg)
     n_micro = cfg.per_gpu_batchsize // cfg.micro_batch_size
     fwd_step = n_micro * K1_PER_EVAL * (cfg.train_fake_timesteps + 1)
-    bf16_step = n_micro * K1_PER_EVAL * cfg.train_fake_timesteps
+    bf16_step = 0  # the bf16 sampler's U-Net computes in f32 (train/precision.py)
     bwd_step, mas_step = n_micro * K1_PER_EVAL, n_micro
     train_ds = SyntheticDataset(n_items=1024, n_mels=cfg.n_mels, seed=0)
     val_ds = SyntheticDataset(n_items=512, n_mels=cfg.n_mels, seed=1)
@@ -609,7 +630,7 @@ def gan_phase(work_dir):
     # a validation batch: the bf16 sampler (whole batch) and one f32 loss evaluation
     want = {gn_mish.NAME: GAN_STEPS * fwd_step + n_val * K1_PER_EVAL * (cfg.train_fake_timesteps + 1),
             gn_mish.BWD_NAME: GAN_STEPS * bwd_step, mas.NAME: GAN_STEPS * mas_step + n_val}
-    want_bf16 = GAN_STEPS * bf16_step + n_val * K1_PER_EVAL * cfg.train_fake_timesteps
+    want_bf16 = 0
     for k, n in want.items():
         if launches.get(k, 0) != n:
             raise AssertionError(f"[GAN] {k} launched {launches.get(k, 0)} times, want {n}")
@@ -678,6 +699,7 @@ def gan_phase(work_dir):
     parts_ms = dict(zip(("sampler", "D phase, R1 on", "D phase, R1 off", "G phase"), time_ms_turns(
         [lambda: sample_fake(state.model, mb, gen), lambda: d_phase(True), lambda: d_phase(False),
          g_phase], iters=1, reps=3)))
+    turns_s = sampler_turns(load_old_step(old_step), cfg, state, mb, gen) if old_step else None
 
     profiles = {}
     for use_r1 in (1, 0):  # one warm step each; R1's cost by kernel is the difference
@@ -692,9 +714,73 @@ def gan_phase(work_dir):
         "peak_bytes": peak, "buckets": buckets, "n_val": n_val, "turns": turns, "peaks": peaks,
         "step_launches": step_launches, "turn_bucket": (batch.x.shape[1], batch.y.shape[2]),
         "profiles": profiles, "mas_inputs": mas_seen[0], "parts_ms": parts_ms,
+        "sampler_turns": turns_s,
         "state": state, "batch": batch, "train_ds": train_ds, "val_ds": val_ds,
         "n_batches": len(loader),
     }
+
+
+# device kernels of the sampler by part: (label, name fragments), first match wins
+SAMPLER_PARTS = (("K1", ("gn_mish",)), ("casts and copies", ("copy", "Copy", "cast")),
+                 ("convolutions and GEMMs", ("conv", "gemm", "Gemm", "xmma", "cudnn", "sm90_",
+                                             "sm80_", "cutlass", "wgrad", "dgrad")))
+
+
+def load_old_step(path):
+    """An earlier ``train/step.py`` (a git-ignored copy) loaded as a module of
+    its own; its imports resolve to this checkout's port."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("facegantts_tpu_torch.train._earlier_step",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sampler_turns(old_step, cfg, state, mb, gen):
+    """The GAN step's no-grad ``sample_fake`` of an earlier ``step.py`` and
+    of this one on one micro-batch and the same noise: card time in turns
+    (earlier, new, new, earlier; three calls a turn, CUDA events), then one
+    profiled call of each: device time by part (``SAMPLER_PARTS``, the rest
+    elementwise), launches, and K1's calls by dtype."""
+    import torch
+
+    from facegantts_tpu_torch.train import step as new_step
+
+    noise = torch.randn(mb.y.shape, generator=gen, device="cuda")
+    fns = {tag: mod.make_gan_loss_fns(cfg)[0] for tag, mod in
+           (("earlier", old_step), ("new", new_step))}
+    calls = {tag: (lambda f=f: f(state.model, mb, noise=noise)) for tag, f in fns.items()}
+    out = {tag: {"ms": []} for tag in fns}
+    fakes = {tag: fn() for tag, fn in calls.items()}
+    torch.cuda.synchronize()
+    for tag in ("earlier", "new", "new", "earlier"):
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            calls[tag]()
+            end.record()
+            end.synchronize()
+            out[tag]["ms"].append(start.elapsed_time(end))
+    for tag, fn in calls.items():
+        with path_counts() as pc:
+            per, wall, count = device_profile(fn, n=1)
+        parts = collections.Counter()
+        for k, v in per.items():
+            label = next((lab for lab, frags in SAMPLER_PARTS if any(f in k for f in frags)),
+                         "elementwise and the rest")
+            parts[label] += v / 1e3
+        out[tag].update(device_ms=sum(per.values()) / 1e3, parts=dict(parts),
+                        launches=sum(count.values()), wall_ms=wall / 1e3,
+                        k1_dtypes={k: v // 2 for k, v in pc.fwd.items()})  # warm-up + run
+    diff = (fakes["new"] - fakes["earlier"]).abs().amax(dim=1)  # (B, T)
+    cover = {tag: f.abs().sum(dim=1) > 0 for tag, f in fakes.items()}  # the frames it covers
+    both = cover["new"] & cover["earlier"]
+    out["fake_diff"], out["fake_max"] = float(diff.max()), float(fakes["earlier"].abs().max())
+    out["fake_diff_both"] = float(diff[both].max()) if both.any() else None
+    out["frames"] = {tag: c.sum(dim=1).tolist() for tag, c in cover.items()}
+    return out
 
 
 class path_counts:
@@ -748,18 +834,18 @@ class path_counts:
 def option_counts(cfg):
     """Per GAN step of ``cfg`` at batch 64 (plain step: per step), what the
     code launches: (K1 forwards, of them bf16, K1 backwards, of them bf16,
-    MAS).  The no-grad sampler's bf16 model runs K1 in bf16; every other
-    U-Net evaluation gets an f32 activation, also under ``train_bf16``,
-    where the JAX package's flax promotes the encoder (from its first
-    attention on) and the U-Net to f32 with bf16 weights
-    (``train/precision.py``), so K1's backward runs in f32 on every path."""
+    MAS).  Every U-Net evaluation gets an f32 activation, the bf16 samplers'
+    and ``train_bf16``'s too, where the JAX package's flax promotes the
+    encoder (from its first attention on) and the U-Net to f32 with bf16
+    weights (``train/precision.py``), so K1 runs in f32 on every training
+    path, forward and backward."""
     if not cfg.use_gan:
         return K1_PER_EVAL, 0, K1_PER_EVAL, 0, 1
     n = cfg.per_gpu_batchsize // cfg.micro_batch_size
     sampler = n * K1_PER_EVAL * cfg.train_fake_timesteps
     g_evals = 1 + (cfg.timesteps if cfg.adv_grad_through_sampler else 0)
     g_fwd = n * K1_PER_EVAL * g_evals * (2 if cfg.grad_remat else 1)
-    return (sampler + g_fwd, sampler, n * K1_PER_EVAL * g_evals, 0,
+    return (sampler + g_fwd, 0, n * K1_PER_EVAL * g_evals, 0,
             n * (2 if cfg.grad_remat else 1))
 
 
@@ -798,11 +884,9 @@ def option_run(label, cfg, work_dir, steps, train_ds, val_ds):
     if n_val != 1:
         raise AssertionError(f"[options {label}] {n_val} validation batches, want 1")
     fwd, fwd16, bwd, bwd16, n_mas = option_counts(cfg)
-    if cfg.use_gan:  # a validation batch: the no-grad sampler and one f32 loss
-        v_fwd, v_fwd16 = K1_PER_EVAL * (cfg.train_fake_timesteps + 1), (
-            K1_PER_EVAL * cfg.train_fake_timesteps)
-    else:
-        v_fwd, v_fwd16 = K1_PER_EVAL, 0
+    # a validation batch: the no-grad sampler (GAN) and one f32 loss
+    v_fwd = K1_PER_EVAL * ((cfg.train_fake_timesteps + 1) if cfg.use_gan else 1)
+    v_fwd16 = 0
     got = counts.check(label, steps * fwd + v_fwd, steps * fwd16 + v_fwd16, steps * bwd,
                        steps * bwd16, steps * n_mas + 1)
     for module in (state.model, state.disc):
@@ -821,6 +905,313 @@ def option_run(label, cfg, work_dir, steps, train_ds, val_ds):
             raise AssertionError(f"[options {label}] optimizer state not f32: {bad[:4]}")
     step_ms = [1e3 / r["train/steps_per_sec"] for r in logged]
     return state, step_ms, peak, got, logged[-1]
+
+
+# phase 14: a small LRS2-shaped corpus (train, val, test clips over 8 speakers)
+CORPUS_SPLITS = (("train", 64), ("val", 8), ("test", 8))
+CORPUS_SPEAKERS = 8
+CORPUS_SECONDS = (1.2, 5.6)
+CORPUS_TEXTS = (
+    "THE BIRCH CANOE SLID ON THE SMOOTH PLANKS", "GLUE THE SHEET TO THE DARK BLUE BACKGROUND",
+    "IT IS EASY TO TELL THE DEPTH OF A WELL", "THESE DAYS A CHICKEN LEG IS A RARE DISH",
+    "RICE IS OFTEN SERVED IN ROUND BOWLS", "THE JUICE OF LEMONS MAKES FINE PUNCH",
+    "THE BOX WAS THROWN BESIDE THE PARKED TRUCK", "THE HOGS WERE FED CHOPPED CORN AND GARBAGE",
+    "FOUR HOURS OF STEADY WORK FACED US", "A LARGE SIZE IN STOCKINGS IS HARD TO SELL",
+    "THE BOY WAS THERE WHEN THE SUN ROSE", "A ROD IS USED TO CATCH PINK SALMON",
+    "THE SOURCE OF THE HUGE RIVER IS THE CLEAR SPRING", "KICK THE BALL STRAIGHT AND FOLLOW THROUGH",
+    "HELP THE WOMAN GET BACK TO HER FEET", "A POT OF TEA HELPS TO PASS THE EVENING",
+)
+EVAL_STEPS = 2  # phase 14's training: the evaluation runs at its last step
+EVAL_BATCH = 16  # the corpus's 64 training clips give few full batches of 64
+# phase 14's mel bar against the formula in float64, TF32 off (set before the
+# first run on the card from the CPU's differences on this corpus): the linear
+# mel within 1e-5 of its frame's largest value, the log-mel within MEL_LOG_BAR
+# where the mel is above 1e-3 of that value
+MEL_LOG_BAR = 5e-4
+
+
+def corpus_clip(seconds, f0_range, rng, sr=16000):
+    """One speech-like clip: voiced harmonic segments of 0.15-0.6 s with a
+    gliding F0 in ``f0_range`` and a vowel-like tilt, pauses of 0.05-0.3 s,
+    a noise floor; int16 at 0.7 of full scale."""
+    n = int(seconds * sr)
+    y = 0.004 * rng.standard_normal(n)
+    pos = int(rng.uniform(0.05, 0.2) * sr)
+    while pos < n - int(0.1 * sr):
+        m = min(int(rng.uniform(0.15, 0.6) * sr), n - pos)
+        f0 = np.linspace(*rng.uniform(*f0_range, 2), m)
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        formant = rng.uniform(1.0, 1.6)
+        seg = sum(np.sin(k * phase + rng.uniform(0, 6)) / k ** formant for k in range(1, 30)
+                  if k * f0.max() < sr / 2)
+        seg = seg * np.hanning(m) ** 0.3 + 0.02 * rng.standard_normal(m)
+        y[pos:pos + m] += seg
+        pos += m + int(rng.uniform(0.05, 0.3) * sr)
+    return (y / np.abs(y).max() * 0.7 * 32767).astype(np.int16)
+
+
+def write_corpus(root, face_png, seed=0):
+    """The LRS2 layout under ``root``: ``lrs2/wav/{trainval,test}/<spk>/<clip>.wav``,
+    the ``Text:`` line and the face jpg beside ``lrs2/{trainval,test}/<spk>/<clip>``,
+    and one filelist a split.  Returns (Config overrides, {split: clip names})."""
+    import shutil
+
+    from PIL import Image
+    from scipy.io import wavfile
+
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed)
+    lrs2 = os.path.join(root, "lrs2")
+    f0s = [(lo, lo + rng.uniform(25, 60)) for lo in np.linspace(90, 190, CORPUS_SPEAKERS)]
+    face = Image.open(face_png).convert("RGB")
+    names, over = {}, {"lrs2_path": lrs2}
+    for split, count in CORPUS_SPLITS:
+        sub = "test" if split == "test" else "trainval"
+        names[split] = [f"spk{i % CORPUS_SPEAKERS}_{split}/{i:05d}" for i in range(count)]
+        for i, name in enumerate(names[split]):
+            spk = i % CORPUS_SPEAKERS
+            for d in (os.path.join("wav", sub), sub):
+                os.makedirs(os.path.join(lrs2, d, os.path.dirname(name)), exist_ok=True)
+            wavfile.write(os.path.join(lrs2, "wav", sub, name + ".wav"), 16000,
+                          corpus_clip(rng.uniform(*CORPUS_SECONDS), f0s[spk], rng))
+            with open(os.path.join(lrs2, sub, name + ".txt"), "w") as f:
+                f.write(f"Text:  {CORPUS_TEXTS[rng.integers(len(CORPUS_TEXTS))]}\nConf:  4\n")
+            face.save(os.path.join(lrs2, sub, name + ".jpg"))
+        over[f"lrs2_{split}"] = os.path.join(root, f"{split}.list")
+        with open(over[f"lrs2_{split}"], "w") as f:
+            f.write("\n".join(names[split]) + "\n")
+    return over, names
+
+
+def mel_errors(got, exact):
+    """(linear error of the frame's largest value, log error where the mel
+    is above 1e-3 of it), each the largest over the clip."""
+    lin, top = np.exp(exact), np.exp(exact).max(axis=0, keepdims=True)
+    live = lin > 1e-3 * top
+    return (float((np.abs(np.exp(got) - lin) / top).max()),
+            float(np.abs(got - exact)[live].max()))
+
+
+def pack_corpus(over, packed, device):
+    """Every split through ``data.preprocess.main`` on ``device``, each
+    clip's mel recorded with the waveform it came from; the mels are held to
+    ``ops/mel.py: mel_spectrogram_float64`` (TF32 off, whatever the process
+    sets) and the packed
+    float16 mels to the recorded ones.  Returns (seconds by part a clip,
+    {split: shard paths}, the largest errors, clips)."""
+    import torch
+
+    from facegantts_tpu_torch.config import default_config
+    from facegantts_tpu_torch.data import preprocess
+    from facegantts_tpu_torch.data.dataset import load_packed
+    from facegantts_tpu_torch.ops.mel import mel_spectrogram_float64
+
+    seen, orig = [], preprocess._mel_host
+
+    def recording(wav, cfg, device=None):
+        out = orig(wav, cfg, device)
+        seen.append((np.array(wav), out))
+        return out
+
+    timings, shards = {}, {}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True  # the op must turn TF32 off itself
+    preprocess._mel_host = recording
+    try:
+        for split, _ in CORPUS_SPLITS:
+            argv = [f"{k}={v}" for k, v in over.items()] + [
+                f"packed_data_dir={packed}", f"split={split}", f"device={device}"]
+            shards[split] = preprocess.main(argv, timings=timings)
+    finally:
+        preprocess._mel_host = orig
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    cfg = default_config(env={}, overrides=dict(packed_data_dir=packed))
+    args = (cfg.n_fft, cfg.n_mels, cfg.sample_rate, cfg.hop_len, cfg.win_len, cfg.f_min,
+            cfg.f_max)
+    errs = [mel_errors(m, mel_spectrogram_float64(w, *args)[0]) for w, m in seen]
+    lin, log_err = max(e[0] for e in errs), max(e[1] for e in errs)
+    if not (lin <= 1e-5 and log_err <= MEL_LOG_BAR):
+        raise AssertionError(f"[data] mel against float64: linear {lin:.3e} of the frame's "
+                             f"largest value (bar 1e-5), log {log_err:.3e} (bar {MEL_LOG_BAR})")
+    packed_mels = [np.asarray(ds[i]["y"]) for split, _ in CORPUS_SPLITS
+                   for ds in [load_packed(cfg, split)] for i in range(len(ds))]
+    if len(packed_mels) != len(seen) or any(
+            not np.array_equal(p.astype(np.float16), m.astype(np.float16))
+            for p, (_, m) in zip(packed_mels, seen)):
+        raise AssertionError("[data] a packed mel is not its recorded mel in float16")
+    per_clip = {k: v / len(seen) for k, v in timings.items()}
+    return per_clip, shards, (lin, log_err), len(seen)
+
+
+_MISSING = object()
+
+
+class timed_calls:
+    """Inside the block, each ``(owner, attribute, label)`` callable is
+    wrapped to add its host seconds (its results reach the host, so they
+    include the device's) to ``self.seconds[label]``."""
+
+    def __init__(self, targets):
+        self.targets, self.seconds, self.saved = targets, collections.Counter(), []
+
+    def __enter__(self):
+        for owner, attr, label in self.targets:
+            fn = getattr(owner, attr)
+
+            def timed(*a, _fn=fn, _label=label, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.seconds[_label] += time.perf_counter() - t0
+
+            self.saved.append((owner, attr, owner.__dict__.get(attr, _MISSING)))
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, old in reversed(self.saved):
+            if old is _MISSING:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, old)
+
+
+
+def eval_train(cfg, work_dir, device="cuda"):
+    """``train/loop.train`` on the packed corpus with the in-training
+    evaluation at its last step: every evaluation's launches (counts zeroed
+    just before it, read just after) and host seconds by part.  Returns
+    (state, the evaluations' records, the whole run's launches)."""
+    import shutil
+
+    from facegantts_tpu_torch.evaluation import evaluate, intrain
+    from facegantts_tpu_torch.evaluation import metrics as metrics_mod
+    from facegantts_tpu_torch.evaluation import world
+    from facegantts_tpu_torch.ops import kernels
+    from facegantts_tpu_torch.train.loop import train
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    records, total = [], collections.Counter()
+    orig_run = intrain.IntrainEvaluator.run
+
+    def run(self, state, step):
+        total.update(kernels.LAUNCHES)
+        targets = [(self.synth, "synthesize", "synthesis"), (self, "_gt_wav", "copy-synthesis"),
+                   (self, "syncnet_apply", "SyncNet"), (evaluate, "_mel", "mel"),
+                   (world, "world_log_f0_rmse", "WORLD F0"), (metrics_mod, "mcd", "MCD"),
+                   (metrics_mod, "log_spectral_distance", "LSD"), (self, "mos", "MOS")]
+        t0 = time.perf_counter()
+        with timed_calls(targets) as tc, path_counts() as pc:
+            res = orig_run(self, state, step)
+        records.append({"step": step, "results": res, "seconds": dict(tc.seconds),
+                        "wall_s": time.perf_counter() - t0, "launches": pc.launches,
+                        "k1_fwd": dict(pc.fwd), "k1_bwd": dict(pc.bwd)})
+        total.update(pc.launches)
+        kernels.LAUNCHES.clear()
+        return res
+
+    kernels.LAUNCHES.clear()
+    intrain.IntrainEvaluator.run = run
+    try:
+        t0 = time.perf_counter()
+        state = train(cfg, work_dir, EVAL_STEPS, device=device)
+        wall = time.perf_counter() - t0
+    finally:
+        intrain.IntrainEvaluator.run = orig_run
+    total.update(kernels.LAUNCHES)
+    return state, records, dict(total), wall
+
+
+def data_eval_phase(smi, face_png):
+    """Phase 14: the data and evaluation path on the card.  Raises on any
+    failed check; returns what it measured."""
+    import torch
+
+    from facegantts_tpu_torch.config import default_config
+    from facegantts_tpu_torch.evaluation import acc_measure, evaluate
+    from facegantts_tpu_torch.ops import gn_mish, mas
+
+    root = os.path.join(ROOT, "runs", "chip_smoke_corpus")
+    packed = os.path.join(root, "packed")
+    out = {}
+    t0 = time.perf_counter()
+    over, names = write_corpus(root, face_png)
+    out["write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["per_clip_s"], out["shards"], out["mel_err"], out["clips"] = pack_corpus(
+        over, packed, "cuda")
+    out["pack_s"] = time.perf_counter() - t0
+
+    # train on it, the evaluation at the last step
+    cfg = default_config(env={}, overrides=dict(
+        over, packed_data_dir=packed, use_gan=0, fused_gn_mish=1, eval_interval=EVAL_STEPS,
+        batch_size=EVAL_BATCH, num_gpus=1, log_every_n_steps=1))
+    if cfg.eval_n_samples != 4 or cfg.f0_protocol != "world" or not cfg.use_bf16:
+        raise AssertionError(f"[eval] not the Config's evaluation: eval_n_samples "
+                             f"{cfg.eval_n_samples}, f0_protocol {cfg.f0_protocol}, use_bf16 "
+                             f"{cfg.use_bf16}")
+    work = os.path.join(ROOT, "runs", "chip_smoke_eval")
+    state, records, out["train_launches"], out["train_wall_s"] = eval_train(cfg, work)
+    del state
+    torch.cuda.empty_cache()
+    if [r["step"] for r in records] != [EVAL_STEPS]:
+        raise AssertionError(f"[eval] evaluations at steps {[r['step'] for r in records]}")
+    rec = out["eval"] = records[0]
+    n = int(rec["results"]["Samples"])
+    got = (rec["launches"].get(gn_mish.NAME, 0), rec["k1_fwd"].get("bfloat16", 0),
+           rec["launches"].get(gn_mish.BWD_NAME, 0), rec["launches"].get(mas.NAME, 0))
+    want = (K1_PER_EVAL * cfg.timesteps * n, K1_PER_EVAL * cfg.timesteps * n, 0, 0)
+    if n != cfg.eval_n_samples or got != want:
+        raise AssertionError(f"[eval] {n} items; launches (K1, of them bf16, K1 backward, MAS) "
+                             f"{got}, want {want}")
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    evals = [r for r in recs if "eval/Composite Metric" in r]
+    if "eval_backends" not in recs[0] or [r["step"] for r in evals] != [EVAL_STEPS] or not all(
+            math.isfinite(v) for v in evals[0].values()):
+        raise AssertionError(f"[eval] metrics.jsonl: {recs[0]}, {evals}")
+    step_dir = os.path.join(work, "inference", f"step_{EVAL_STEPS:08d}")
+    with open(os.path.join(step_dir, "eval_output.txt")) as f:
+        text = f.read()
+    for key in ("# backend syncnet: RANDOM-INIT", "# backend mos: DSP calibration proxy",
+                "# backend f0: world", "# backend vocoder: RANDOM-INIT", "Composite Metric: ",
+                "Speaker Similarity: ", "F0 RMSE: ", "MCD: ", "STFT Distance: ", "UTMOS: "):
+        if key not in text:
+            raise AssertionError(f"[eval] eval_output.txt lacks {key!r}")
+    samples = [os.path.join(step_dir, f"sample_{i}.wav") for i in range(n)]
+    if not all(os.path.exists(p) for p in samples):
+        raise AssertionError(f"[eval] sample wavs missing in {step_dir}")
+    out["eval_text"] = text
+
+    # the evaluate CLI: the evaluation's samples against the corpus wavs of those val clips
+    import shutil
+
+    gt = os.path.join(root, "gt_eval")
+    os.makedirs(gt, exist_ok=True)
+    for i in range(n):
+        shutil.copy(os.path.join(over["lrs2_path"], "wav", "trainval", names["val"][i] + ".wav"),
+                    os.path.join(gt, f"sample_{i}.wav"))
+    t0 = time.perf_counter()
+    res = evaluate.main([f"output_dir={step_dir}", f"ground_truth_dir={gt}",
+                         f"results_path={os.path.join(root, 'evaluation')}"])
+    out["evaluate_s"] = time.perf_counter() - t0
+    if res["Paired Files"] != n or not all(math.isfinite(v) for v in res.values()):
+        raise AssertionError(f"[evaluate] {res}")
+    with open(os.path.join(root, "evaluation", "eval_output.txt")) as f:
+        if "Composite Metric: " not in f.read():
+            raise AssertionError("[evaluate] eval_output.txt lacks the composite")
+    out["evaluate"] = res
+
+    # the acc_measure CLI on the packed test split
+    t0 = time.perf_counter()
+    acc = acc_measure.main([f"packed_data_dir={packed}", "n_way=5", "n_trials=100"])["results"]
+    out["acc_s"] = time.perf_counter() - t0
+    if not all(0.0 <= acc[k] <= 1.0 for k in ("voice_to_face_acc", "face_to_voice_acc")):
+        raise AssertionError(f"[acc_measure] {acc}")
+    out["acc"] = acc
+    out["cfg"] = cfg
+    return out
 
 
 def k1_bwd_bf16(shape, gen):
@@ -1206,12 +1597,16 @@ def persist_phase(gan, texts, face, cmu):
         torch.manual_seed(11)  # dropout
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (_, m), got = counted(lambda: train_step(st, batch, gen, use_r1=True))
+        with path_counts() as pc:
+            (_, m), got = counted(lambda: train_step(st, batch, gen, use_r1=True))
         metrics[tag] = {k: float(v) for k, v in m.items()}
         step_ms[tag] = (time.perf_counter() - t0) * 1e3
         want = {gn_mish.BWD_NAME: 100, mas.NAME: 4, gn_mish.NAME: 500}
         if any(got.get(k, 0) != n for k, n in want.items()):
             fails.append(f"one step from the {tag} state launched {got}, want {want}")
+        if pc.fwd["bfloat16"] or pc.bwd["bfloat16"]:  # the sampler's U-Net computes in f32
+            fails.append(f"one step from the {tag} state ran K1 in bf16: forward "
+                         f"{dict(pc.fwd)}, backward {dict(pc.bwd)}")
     rel = {k: abs(v - metrics["restored"][k]) / max(abs(v), abs(metrics["restored"][k]), 1e-30)
            for k, v in metrics["saved"].items()}
     out["step_rel"], out["step_ms"], out["step_metrics"] = rel, step_ms, metrics
@@ -1223,9 +1618,12 @@ def persist_phase(gan, texts, face, cmu):
 
     # 3. resume through train()
     t0 = time.perf_counter()
-    resumed, got = counted(lambda: train(cfg.replace(resume_from=os.path.join(work, "last")),
-                                         work, step + 2, gan["train_ds"], gan["val_ds"],
-                                         device="cuda"))
+    with path_counts() as pc:
+        resumed, got = counted(lambda: train(cfg.replace(resume_from=os.path.join(work, "last")),
+                                             work, step + 2, gan["train_ds"], gan["val_ds"],
+                                             device="cuda"))
+    if pc.fwd["bfloat16"] or pc.bwd["bfloat16"]:
+        fails.append(f"resume: K1 ran in bf16: forward {dict(pc.fwd)}, backward {dict(pc.bwd)}")
     out["resume_wall_s"] = time.perf_counter() - t0
     with open(os.path.join(work, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
@@ -1865,6 +2263,9 @@ def main(argv=None) -> int:
     # --old-k1=DIR: an earlier gn_mish.py and gn_mish.cu (a git-ignored copy)
     # whose backward is timed against this one in turns (phase 11)
     old_k1 = next((a.split("=", 1)[1] for a in args if a.startswith("--old-k1=")), None)
+    # --old-step=FILE: an earlier train/step.py (a git-ignored copy) whose
+    # no-grad GAN sampler is timed against this one in turns (phase 8)
+    old_step = next((a.split("=", 1)[1] for a in args if a.startswith("--old-step=")), None)
     try:
         import torch
 
@@ -2129,7 +2530,7 @@ def main(argv=None) -> int:
     del tr["state"]
 
     # ---- 8. GAN training at full width ------------------------------------------
-    gan = gan_phase(os.path.join(ROOT, "runs", "chip_smoke_gan"))
+    gan = gan_phase(os.path.join(ROOT, "runs", "chip_smoke_gan"), old_step)
     cfg_g = gan["cfg"]
     for r, ms in zip(gan["steps"], gan["step_ms"]):
         log(f"[GAN] step {r['step']} (R1 on): {ms:.1f} ms " + " ".join(
@@ -2158,6 +2559,23 @@ def main(argv=None) -> int:
     log(f"[GAN] {smi}: one micro-batch (B={cfg_g.micro_batch_size}) of bucket "
         f"{gan['turn_bucket']} by part, warm, CUDA events, median of 3 in turns: " + ", ".join(
             f"{k} {v:.1f} ms" for k, v in gan["parts_ms"].items()))
+    st = gan["sampler_turns"]
+    if st is None:
+        log("[GAN sampler turns] not measured: no --old-step=FILE (an earlier train/step.py) given")
+    else:
+        for tag in ("earlier", "new"):
+            r = st[tag]
+            log(f"[GAN sampler turns] {smi}: {tag} sample_fake, one micro-batch (B="
+                f"{cfg_g.micro_batch_size}) of bucket {gan['turn_bucket']}: card "
+                f"{[round(v, 1) for v in r['ms']]} ms in turns (earlier, new, new, earlier; 3 "
+                f"calls a turn), median {statistics.median(r['ms']):.1f} ms; profiled: device "
+                f"{r['device_ms']:.2f} ms in {r['launches']:.0f} launches ("
+                + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(r["parts"].items()))
+                + f"), wall {r['wall_ms']:.1f} ms; K1 calls by dtype {r['k1_dtypes']}")
+        log(f"[GAN sampler turns] the two fakes differ by at most {st['fake_diff']:.3e} "
+            f"(largest |value| {st['fake_max']:.1f}), {st['fake_diff_both']} on the frames both "
+            f"cover; frames covered an item: earlier {st['frames']['earlier']}, new "
+            f"{st['frames']['new']}")
     d_fwd = disc_forward_flops(cfg_g, cfg_g.micro_batch_size, cfg_g.n_mels, gan["turn_bucket"][1])
     d_off, d_on = gan["parts_ms"]["D phase, R1 off"], gan["parts_ms"]["D phase, R1 on"]
     log(f"[GAN] {smi}: one discriminator forward on the micro-batch: {d_fwd / 1e12:.3f} TFLOP; "
@@ -2197,10 +2615,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(2)
     gan_checks = {}
     with strict_f32():
-        for shape, _ in K1_GAN_436:
-            p = gn_mish._plan(torch.empty(shape, dtype=torch.bfloat16, device="cuda"), 8, False)
-            r = gan_checks[("k1", shape, "bf16")] = k1_check(shape, torch.bfloat16, gen)
-            log(f"[GAN K1] {shape} bf16 forward: max_abs_err {r['err']:.3e} (bar 0.05); "
+        for shape, _ in K1_GAN_436:  # the sampler's forwards: f32 (train/precision.py)
+            p = gn_mish._plan(torch.empty(shape, device="cuda"), 8, False)
+            r = gan_checks[("k1", shape)] = k1_check(shape, torch.float32, gen)
+            log(f"[GAN K1] {shape} f32 forward: max_abs_err {r['err']:.3e} (bar 1e-4); "
                 f"kernel {r['ms'] * 1e3:.1f} us plain {r['plain_ms'] * 1e3:.1f} us library "
                 f"{r['library_ms'] * 1e3:.1f} us bound {r['bound_ms'] * 1e3:.2f} us; plan: "
                 f"{8 * shape[0]} clusters of {p.cluster}, {p.rpb} rows a block in tiles of {p.rpt}")
@@ -2227,14 +2645,14 @@ def main(argv=None) -> int:
                 f"{r['plain_ms'] * 1e3:.1f} us bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
         del mas_cases
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    g_fwd = {k: sum(gan_checks[("k1", s, "bf16")][k] * n for s, n in K1_GAN_436) for k in keys}
+    g_fwd = {k: sum(gan_checks[("k1", s)][k] * n for s, n in K1_GAN_436) for k in keys}
     g_both = {k: sum(gan_checks[("k1_bwd", s)][k] * n for s, n in K1_GAN_436) for k in keys}
     g_bwd = {k: sum(gan_checks[("k1_bwd", s)]["bwd"][k] * n for s, n in K1_GAN_436)
              for k in keys[:2] + keys[3:]}
     g_dev = eval_sums([gan_checks[("k1_bwd", s)] for s, _ in K1_GAN_436],
                       [n for _, n in K1_GAN_436])
     log(f"[GAN K1] {smi}: one U-Net evaluation at Ty=436, B=16 ({K1_PER_EVAL} launches): "
-        f"bf16 forward (the sampler's) kernel {g_fwd['ms']:.3f} ms plain {g_fwd['plain_ms']:.3f} "
+        f"f32 forward (the sampler's) kernel {g_fwd['ms']:.3f} ms plain {g_fwd['plain_ms']:.3f} "
         f"ms library {g_fwd['library_ms']:.3f} ms bound {g_fwd['bound_ms']:.3f} ms; f32 forward + "
         f"backward (the G phase's) kernel {g_both['ms']:.3f} ms plain {g_both['plain_ms']:.3f} ms "
         f"library {g_both['library_ms']:.3f} ms bound {g_both['bound_ms']:.3f} ms; backward "
@@ -2438,6 +2856,38 @@ def main(argv=None) -> int:
     opt_launches = opt["launches"]
     log(f"[options] launches over the loop runs: {dict(opt_launches)}")
 
+    # ---- 14. the data and evaluation path -----------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    de = data_eval_phase(smi, os.path.join(ROOT, "test", "face.png"))
+    cfg_e, ev = de["cfg"], de["eval"]
+    log(f"[data] {smi}: corpus of {de['clips']} clips ({', '.join(f'{s} {c}' for s, c in CORPUS_SPLITS)}; "
+        f"{CORPUS_SPEAKERS} speakers, {CORPUS_SECONDS[0]}-{CORPUS_SECONDS[1]} s) written in "
+        f"{de['write_s']:.1f} s; packed by data.preprocess.main in {de['pack_s']:.1f} s: ms a "
+        f"clip " + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in de["per_clip_s"].items())
+        + f" (mel on the card, to the host); mel against float64 (TF32 off): linear "
+        f"{de['mel_err'][0]:.3e} of the frame's largest value (bar 1e-5), log {de['mel_err'][1]:.3e} "
+        f"above 1e-3 of it (bar {MEL_LOG_BAR}); shards {de['shards']}")
+    log(f"[eval] {smi}: train() on the packed corpus, use_gan=0, batch {cfg_e.per_gpu_batchsize}, "
+        f"Config widths, eval_interval={cfg_e.eval_interval}, {EVAL_STEPS} steps, "
+        f"{cfg_e.eval_n_samples} items, f0_protocol={cfg_e.f0_protocol}, use_bf16={cfg_e.use_bf16}: "
+        f"{de['train_wall_s']:.1f} s in all; launches over the run {de['train_launches']}")
+    log(f"[eval] {smi}: the evaluation at step {ev['step']}: {ev['wall_s'] * 1e3:.0f} ms; by part "
+        f"(host clock, results on the host): " + ", ".join(
+            f"{k} {v * 1e3:.0f} ms" for k, v in ev["seconds"].items())
+        + f"; launches {ev['launches']}, K1 forwards by dtype {ev['k1_fwd']} "
+        f"({K1_PER_EVAL * cfg_e.timesteps} bf16 an item asserted)")
+    log("[eval] results: " + ", ".join(f"{k} {v:.4f}" for k, v in ev["results"].items()))
+    for line in de["eval_text"].splitlines()[:4]:
+        log(f"[eval] eval_output.txt: {line}")
+    log(f"[evaluate] {smi}: python -m facegantts_tpu_torch.evaluation.evaluate over the "
+        f"evaluation's samples against the corpus wavs: {de['evaluate_s']:.1f} s; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in de["evaluate"].items()))
+    log(f"[acc_measure] {smi}: python -m facegantts_tpu_torch.evaluation.acc_measure on the "
+        f"packed test split, n_way 5, 100 trials: {de['acc_s']:.1f} s; " + ", ".join(
+            f"{k} {v:.2f}" for k, v in de["acc"].items()))
+    de_launches = collections.Counter(de["train_launches"])
+
     # ---- lines -----------------------------------------------------------------
     f32 = per_eval[(436, torch.float32)]
     k1_err = max(r["err"] for (s, dt), r in results.items() if dt == torch.float32)
@@ -2448,14 +2898,15 @@ def main(argv=None) -> int:
         f"K1 launches at Ty=436, B=1, f32 (per-shape lines above), max_abs_err over every f32 "
         f"shape, launches on the inference ({path_launches[gn_mish.NAME]}), training "
         f"({tr['launches'][gn_mish.NAME]}), GAN ({gan['launches'][gn_mish.NAME]}), "
-        f"persistence and serving ({per['launches'][gn_mish.NAME]}) and training-option "
-        f"({opt_launches['K1']}) paths; "
+        f"persistence and serving ({per['launches'][gn_mish.NAME]}), training-option "
+        f"({opt_launches['K1']}) and data and evaluation ({de_launches[gn_mish.NAME]}) paths; "
         f"{gn_mish.BWD_NAME} times are one training "
         f"evaluation's {K1_PER_EVAL} backward launches (B=64), max_abs_err against "
-        f"gn_mish_mask_bwd_ref, launches on the training, GAN, resumed-GAN and "
-        f"training-option paths ({opt_launches['K1 bwd bf16']} of them bf16; the bf16 "
-        f"backward's own times are phase 13's); {mas_mod.NAME} at {MAS_SHAPES[-1]}, launches "
-        f"on the training, GAN, resumed-GAN and training-option paths; {gnorm.NAME} summed "
+        f"gn_mish_mask_bwd_ref, launches on the training, GAN, resumed-GAN, "
+        f"training-option ({opt_launches['K1 bwd bf16']} of them bf16; the bf16 backward's own "
+        f"times are phase 13's) and data and evaluation paths; {mas_mod.NAME} at "
+        f"{MAS_SHAPES[-1]}, launches on the training, GAN, resumed-GAN, training-option and "
+        f"data and evaluation paths; {gnorm.NAME} summed "
         f"over the "
         f"{len(K1_TRAIN)} "
         f"training U-Net shapes, launches in the FusedGroupNorm run; probes at their shapes, "
@@ -2473,18 +2924,20 @@ def main(argv=None) -> int:
         entry(gn_mish.NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:119",
               path_launches[gn_mish.NAME] + tr["launches"][gn_mish.NAME]
               + gan["launches"][gn_mish.NAME] + per["launches"][gn_mish.NAME]
-              + opt_launches["K1"],
+              + opt_launches["K1"] + de_launches[gn_mish.NAME],
               dict(f32, bound_by=k1_by), k1_err),
         entry(gn_mish.BWD_NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:262",
               tr["launches"][gn_mish.BWD_NAME] + gan["launches"][gn_mish.BWD_NAME]
-              + per["launches"][gn_mish.BWD_NAME] + opt_launches["K1 bwd"],
+              + per["launches"][gn_mish.BWD_NAME] + opt_launches["K1 bwd"]
+              + de_launches[gn_mish.BWD_NAME],
               dict(bwd_only, library_ms=None, bound_by=(
                   collections.Counter(checks[("k1_bwd", s)]["bwd"]["bound_by"]
                                       for s, _ in K1_TRAIN).most_common(1)[0][0])),
               max(checks[("k1_bwd", s)]["bwd_abs_err"] for s, _ in K1_TRAIN)),
         entry(mas_mod.NAME, "csrc/mas.cu", "facegantts_tpu/ops/mas.py:38",
               tr["launches"][mas_mod.NAME] + gan["launches"][mas_mod.NAME]
-              + per["launches"][mas_mod.NAME] + opt_launches["MAS"], mas_big, 0.0),
+              + per["launches"][mas_mod.NAME] + opt_launches["MAS"] + de_launches[mas_mod.NAME],
+              mas_big, 0.0),
         entry(gnorm.NAME, "csrc/groupnorm.cu", "facegantts_tpu/ops/groupnorm.py:72",
               gn_launches[gnorm.NAME], dict(k2, bound_by=collections.Counter(
                   checks[("k2", s)]["bound_by"] for s, _ in K1_TRAIN).most_common(1)[0][0]),

@@ -11,9 +11,15 @@ snapshots, the best copy), early stopping, a clean checkpoint-and-return on
 SIGTERM / SIGINT, and ``resume_from``: a port checkpoint directory resumes,
 a reference FaceTTS file warm-starts the generator.  As in the JAX loop, a
 resumed run draws its noise and dropout from ``cfg.seed`` again and starts
-epoch ``step // len(loader)`` from its first batch.  Not ported yet, and so
-not run: in-training evaluation (``eval_interval``) and profiling
-(``profile_dir``).
+epoch ``step // len(loader)`` from its first batch.
+
+In-training evaluation: with a non-zero ``eval_interval`` the loop builds an
+:class:`IntrainEvaluator` once (its backend provenance goes into
+``metrics.jsonl``) and every ``eval_interval`` steps synthesizes validation
+items with the live weights, logs ``eval/*``, mirrors each sample to
+TensorBoard and, when ``checkpoint_monitor`` is one of the evaluation's
+keys ("Composite Metric"), ranks a checkpoint on it.  Not ported yet, and so
+not run: profiling (``profile_dir``).
 """
 
 import json
@@ -68,6 +74,11 @@ class MetricLogger:
         if self.tb:
             self.tb.add_audio(tag, torch.as_tensor(wav).reshape(1, -1), step,
                               sample_rate=sample_rate)
+
+    def write(self, record: Dict) -> None:
+        """One JSON record as it is (no step, no prefix)."""
+        self._f.write(json.dumps(record) + "\n")
+        self._f.flush()
 
     def close(self):
         self._f.close()
@@ -184,6 +195,28 @@ def _validate(state, val_step, val_loader, generator, logger, step, epoch, **kw)
     return avg
 
 
+def _evaluate(evaluator, state, step, epoch, work_dir, logger, policy) -> Dict[str, float]:
+    """One in-training evaluation: ``eval/*`` logged, each sample mirrored
+    to TensorBoard (the reference walks the wav directory into add_audio,
+    custom_callbacks.py:44-55), and with an evaluation metric as the monitor
+    a ranked checkpoint without a snapshot (the reference's StepwiseEval
+    ranked retention, custom_callbacks.py:57-92)."""
+    from facegantts_tpu_torch.utils.audio import load_wav
+
+    results = evaluator.run(state, step)
+    logger.log(step, results, prefix="eval")
+    step_dir = os.path.join(work_dir, "inference", f"step_{step:08d}")
+    for i in range(int(results.get("Samples", 0))):
+        wav_path = os.path.join(step_dir, f"sample_{i}.wav")
+        if os.path.exists(wav_path):
+            wav, sr = load_wav(wav_path)
+            logger.log_audio(step, f"eval/sample_{i}", wav, sr)
+    print(f"[eval step {step}] " + " ".join(f"{k}={v:.4f}" for k, v in results.items()))
+    if policy.monitor in results:
+        policy.save_epoch(state, step, epoch, results, with_snapshot=False)
+    return results
+
+
 def train(cfg: Config, work_dir: str = "runs/default", max_steps: Optional[int] = None,
           train_ds=None, val_ds=None, device=None) -> TrainState:
     """Train until ``max_steps``; returns the final :class:`TrainState`.
@@ -205,8 +238,7 @@ def train(cfg: Config, work_dir: str = "runs/default", max_steps: Optional[int] 
 
 
 def _train(cfg, work_dir, max_steps, train_ds, val_ds, device, shutdown) -> TrainState:
-    print("[INFO] not ported yet, so not run: in-training evaluation (eval_interval), "
-          "profiling (profile_dir)")
+    print("[INFO] not ported yet, so not run: profiling (profile_dir)")
     if train_ds is None:
         train_ds = load_packed(cfg, "train") or SyntheticDataset(n_items=256, n_mels=cfg.n_mels)
     if val_ds is None:
@@ -233,6 +265,13 @@ def _train(cfg, work_dir, max_steps, train_ds, val_ds, device, shutdown) -> Trai
             state = warm_start(cfg, init_state(cfg, device))
             make_step = make_gan_train_step if cfg.use_gan else make_plain_train_step
             train_step, val_step = make_step(cfg, device)
+            evaluator = None
+            if cfg.eval_interval:  # built once; its weights are swapped at each run
+                from facegantts_tpu_torch.evaluation.intrain import IntrainEvaluator
+
+                evaluator = IntrainEvaluator(cfg, val_ds, os.path.join(work_dir, "inference"),
+                                             device=device)
+                logger.write({"eval_backends": evaluator.provenance})
             step = state.step
             # a resumed run goes on with the epoch it stopped in, from its start
             epoch = step // max(1, len(loader))
@@ -261,6 +300,8 @@ def _train(cfg, work_dir, max_steps, train_ds, val_ds, device, shutdown) -> Trai
                         print(f"[step {step}] " + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
                     if step % cfg.save_step == 0:
                         policy.save_step(state, step)
+                    if evaluator is not None and step % cfg.eval_interval == 0:
+                        _evaluate(evaluator, state, step, epoch, work_dir, logger, policy)
                     if step >= max_steps:
                         break
                 val_kw = ({"train_disc": gan_flags(cfg, epoch, step)["train_disc"]}

@@ -40,8 +40,6 @@ discriminator, which the JAX package's GAN step cannot run (ROADMAP §3),
 and the ``tpu_opt`` discriminator (ROADMAP item 18).
 """
 
-import copy
-import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -57,7 +55,7 @@ from facegantts_tpu_torch.train.optim import (
     GeneratorOptimizer,
     gan_group,
 )
-from facegantts_tpu_torch.train.precision import call_as_is, mp_caster
+from facegantts_tpu_torch.train.precision import mp_caster
 from facegantts_tpu_torch.train.state import Batch, TrainState
 
 METRICS = ("duration_loss", "prior_loss", "diffusion_loss", "spk_loss", "total_loss")
@@ -225,11 +223,6 @@ def _micro_split(batch: Batch, mb_size: int) -> Tuple[int, List[Batch]]:
                for i in range(n)]
 
 
-def _float_tensors(module: torch.nn.Module) -> List[torch.Tensor]:
-    return [t for t in list(module.parameters()) + list(module.buffers())
-            if t.is_floating_point()]
-
-
 # --------------------------------------------------------------------------
 # GAN step
 
@@ -256,45 +249,8 @@ def make_gan_loss_fns(cfg: Config):
     loss_type = cfg.disc_loss_type
     down, up, call = mp_caster(cfg.train_bf16)
     d_down, _, d_call = mp_caster(cfg.disc_bf16 or cfg.train_bf16)
-    # the sampler with gradient: bf16 with gan_sampler_bf16, else as the G phase
+    # both samplers: bf16 with gan_sampler_bf16, else as the G phase
     s_down, _, s_call = mp_caster(cfg.gan_sampler_bf16 or cfg.train_bf16)
-    replicas: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-    def bf16_replica(model: FaceTTS) -> FaceTTS:
-        """A bf16 copy of the whole model (encoder and SyncNet included,
-        as the JAX sampler casts all params and model state), refreshed
-        from ``model``'s current values."""
-        rep = replicas.get(model)
-        if rep is None:
-            rep = copy.deepcopy(model).to(torch.bfloat16).eval().requires_grad_(False)
-            replicas[model] = rep
-        with torch.no_grad():
-            torch._foreach_copy_(_float_tensors(rep), _float_tensors(model))
-        return rep
-
-    def sample_fake(model: FaceTTS, mb: Batch, generator: Optional[torch.Generator] = None,
-                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """No-grad fake mel (reference @no_grad forward,
-        face_tts_w_discriminator.py:163-165): ``train_fake_timesteps``
-        deterministic reverse steps at temperature 1 and length_scale 1, at
-        the batch's mel bucket.  With ``gan_sampler_bf16`` (the default) the
-        whole model runs in bfloat16, every layer included; the fake returns
-        in f32.  ``noise`` (B, F, T) standard normal replaces the draw from
-        ``generator``."""
-        if cfg.gan_sampler_bf16:
-            net, spk, run = bf16_replica(model), mb.spk.to(torch.bfloat16), call_as_is
-        else:
-            net, spk, run = model, down(mb.spk), call
-        was_training = net.training
-        net.eval()
-        try:
-            with torch.no_grad():
-                _, dec, _, _ = run(net, mb.x, mb.x_len, cfg.train_fake_timesteps,
-                                   mb.y.shape[-1], 1.0, False, spk, 1.0, generator=generator,
-                                   noise=noise)
-        finally:
-            net.train(was_training)
-        return dec.float()
 
     def sample_fake_grad(model: FaceTTS, mb: Batch, generator, noise) -> torch.Tensor:
         """The fake of ``adv_grad_through_sampler``: the sampler of
@@ -311,6 +267,22 @@ def make_gan_loss_fns(cfg: Config):
         finally:
             model.train(was_training)
         return dec.float()
+
+    def sample_fake(model: FaceTTS, mb: Batch, generator: Optional[torch.Generator] = None,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """No-grad fake mel (reference @no_grad forward,
+        face_tts_w_discriminator.py:163-165): ``train_fake_timesteps``
+        deterministic reverse steps at temperature 1 and length_scale 1, at
+        the batch's mel bucket.  With ``gan_sampler_bf16`` (the default) the
+        model runs as the JAX sampler runs it, with every parameter and
+        buffer cast to bfloat16 and flax's dtype promotion
+        (``train/precision.py: run``): SyncNet's image stream and the prenet
+        compute in bf16, the encoder from its first attention on, ``mu_y``
+        and the U-Net (K1 included) in f32 with bf16 weights.  The fake
+        returns in f32.  ``noise`` (B, F, T) standard normal replaces the
+        draw from ``generator``."""
+        with torch.no_grad():
+            return sample_fake_grad(model, mb, generator, noise)
 
     def d_loss_fn(disc: SpectrogramDiscriminator, y_real: torch.Tensor, fake: torch.Tensor,
                   use_r1: bool):

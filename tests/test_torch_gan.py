@@ -345,27 +345,20 @@ def _jax_fake(mb, noise, bf16):
     return np.asarray(jax.jit(run)(variables, mb["x"], mb["x_len"], mb["spk"], noise))
 
 
-def _bf16_step(v):
-    """The spacing of bf16 numbers at |v|: 2^(floor(log2 |v|) - 7)."""
-    v = np.abs(v)
-    return np.where(v > 0, 2.0 ** (np.floor(np.log2(np.maximum(v, 1e-30))) - 7), 0.0)
-
-
 def test_sample_fake_matches_jax():
     """f32: the bars of tests/test_e2e_parity.py (max 2e-3, mean 2e-4).
 
-    bf16 (the default): the whole model runs in bf16 (encoder and SyncNet
-    included, as the JAX sampler casts all parameters), and the fake is
-    bf16 values in f32.  The fake covers the same frames as JAX's (the
-    durations' exp and ceil run in f32, as XLA computes them), and lies
-    within bf16 rounding of JAX's bf16 fake: on average within one bf16
-    step of each value, and nowhere further than two bf16 steps at the
-    fake's largest magnitude.  A tighter bar cannot hold: XLA's CPU code
-    keeps convolutions and fused elementwise chains in f32 and rounds to
-    bf16 at fusion boundaries (JAX's bf16 fake lies within ~0.003 of its f32
-    fake here), while torch rounds after every op; measured, the port's
-    bf16 fake lies 0.021 from JAX's on average (bar 0.049), 0.46 at most
-    (bar 1.0), at values up to 83."""
+    bf16 (the default): every parameter and buffer cast to bf16 under
+    flax's promotion, as the JAX sampler runs (``train/precision.py: run``):
+    the encoder from its first attention on, ``mu_y`` and the U-Net compute
+    in f32 with bf16 weights, so the fake is f32 values, not bf16 ones (the
+    layer-by-layer dtypes: ``tests/test_torch_precision.py``).  It covers
+    the same frames as JAX's (the durations' exp and ceil run in f32, as
+    XLA computes them).  Measured, the port's bf16 fake lies 2.4e-3 from
+    JAX's on average and 0.027 at most, at values up to 42, where JAX's own
+    bf16 fake lies 3.4e-3 / 0.030 from its f32 fake: the bars are 5e-3 and
+    0.05.  (The all-bf16 sampler this replaced lay 0.021 / 0.46 from JAX's,
+    under bars of 0.049 / 1.0 that these replace.)"""
     mb = _rows(_batch(), 0, 3)
     noise = np.random.default_rng(9).standard_normal((3, 128, T_Y)).astype(np.float32)
     want32, want16 = _jax_fake(mb, noise, False), _jax_fake(mb, noise, True)
@@ -382,13 +375,11 @@ def test_sample_fake_matches_jax():
     assert d.max() < 2e-3 and d.mean() < 2e-4, (d.max(), d.mean())
 
     fake16 = got[True]
-    assert np.array_equal(fake16, torch.from_numpy(fake16).bfloat16().float().numpy())
+    assert not np.array_equal(fake16, torch.from_numpy(fake16).bfloat16().float().numpy())
     frames = [(np.abs(f).sum(axis=1) > 0).sum(axis=-1) for f in (fake16, want16)]
     np.testing.assert_array_equal(*frames)
     d = np.abs(fake16 - want16)
-    mean_bar = _bf16_step(want16).mean()
-    max_bar = 2 * _bf16_step(np.abs(want16).max())
-    assert d.mean() <= mean_bar and d.max() <= max_bar, (d.mean(), mean_bar, d.max(), max_bar)
+    assert d.mean() <= 5e-3 and d.max() <= 0.05, (d.mean(), d.max())
 
 
 # ---------------------------------------------------------------------------

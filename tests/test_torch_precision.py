@@ -338,6 +338,57 @@ def test_train_bf16_loss_matches_jax(monkeypatch):
     assert _max_frac(g32, jg32) < 1e-3
 
 
+def jax_layer_dtypes(fn, *args, **kwargs):
+    """Run ``fn`` (it must trace anew) with every flax ``__call__`` recorded:
+    the dtypes of each module's outputs, by module path (relative to the
+    module that ``apply`` was called on).  Unlike ``capture_intermediates``
+    this also sees the modules inside ``nn.scan`` (the sampler's U-Net)."""
+    import flax.linen as nn
+
+    seen = {}
+
+    def record(f, a, k, ctx):
+        out = f(*a, **k)
+        if ctx.method_name == "__call__":
+            for leaf in jax.tree.leaves(out):
+                if hasattr(leaf, "dtype"):
+                    seen.setdefault("/".join(ctx.module.path), set()).add(str(leaf.dtype))
+        return out
+
+    with nn.intercept_methods(record):
+        out = fn(*args, **kwargs)
+    return out, seen
+
+
+def test_sample_fake_bf16_layer_dtypes_match_jax():
+    """The no-grad GAN sampler with ``gan_sampler_bf16`` (the default) gives
+    each of the generator's layers with parameters the output dtype that
+    JAX's ``sample_fake`` gives it (JAX's U-Net recorded inside its
+    ``nn.scan``): bf16 in the 28 layers of SyncNet's image stream, the
+    embedding, the prenet, the first attention's q, k and v and the U-Net's
+    time and speaker MLPs; f32 in the other 104, K1's chains included.  An
+    all-bf16 sampler fails here (every layer bf16)."""
+    jcfg, jm, _, variables, _ = _jax_setup()
+    mb = _rows(_batch(), 0, 2)
+    noise = np.random.default_rng(9).standard_normal((2, 128, T_Y)).astype(np.float32)
+    cast = functools.partial(jstep._cast_floats, dtype=jnp.bfloat16)
+    # JAX's sample_fake: model.apply of the bf16-cast variables and spk
+    _, seen = jax_layer_dtypes(jax.jit(lambda v, spk: jm.apply(
+        cast(v), mb["x"], mb["x_len"], jcfg.train_fake_timesteps, T_Y, 1.0, False, cast(spk),
+        1.0, jax.random.PRNGKey(0), noise=noise)), variables, jnp.asarray(mb["spk"]))
+    want = {p: d for p, d in seen.items() if p in _layer_names()}
+    cfg, state = _port()
+    assert cfg.gan_sampler_bf16 == 1
+    sample_fake, _, _ = tstep.make_gan_loss_fns(cfg)
+    with _port_layer_dtypes(state.model) as dtypes:
+        fake = sample_fake(state.model, _torch_batch(mb), noise=torch.from_numpy(noise))
+    assert fake.dtype == torch.float32
+    assert len(want) == len(dtypes) == len(_layer_names()) == 132
+    assert dtypes == want
+    assert sum(d == {"bfloat16"} for d in dtypes.values()) == 28
+    assert dtypes["decoder/estimator/final_conv"] == {"float32"}
+
+
 # ---------------------------------------------------------------------------
 # disc_bf16: the D phase
 

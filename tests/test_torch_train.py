@@ -369,7 +369,9 @@ def test_train_entry_point_cpu(tmp_path):
     args = [f"{k}={v}" for k, v in TINY.items()] + [
         "device=cpu", "use_gan=0", "max_steps=2", "batch_size=2", "num_gpus=1",
         "log_every_n_steps=1", f"work_dir={tmp_path}"]
-    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    # one thread, as the test process runs torch: at the host's thread count
+    # the subprocess contends with the other test workers for the cores
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-m", "facegantts_tpu_torch.train", *args],
                          capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
