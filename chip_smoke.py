@@ -147,6 +147,28 @@ non-zero and prints no result line):
    part; then the ``evaluate`` CLI over those samples against the corpus
    wavs of the val clips and the ``acc_measure`` CLI on the test split
    (n_way 5, 100 trials).
+15. the UTMOS-strong SSL MOS model (``evaluation/ssl_mos.py``) at the
+   wav2vec2 BASE widths, random weights from seed 15, under
+   ``runs/chip_smoke_mos``: (a) written as a HuggingFace-named file
+   (positional conv in ``parametrizations``) and a fairseq-named one
+   (``weight_g`` / ``weight_v``), each loaded by ``make_mos_predictor`` into
+   the port's ``SSLMOSPredictor`` on the card, both giving one MOS; (b) the
+   card against the port on the CPU in strict f32 at 1, 4 and 10 s of
+   harmonic audio (MOS within 1e-5, features within 1e-4), the MOS shift
+   under PyTorch's TF32 defaults and with every norm at torch's 1e-5; (c)
+   warm ms a call, device time and launches by part, peak memory, the
+   bound; (d) the ``evaluate`` CLI over phase 14's samples with
+   ``mos_ckpt=`` the HF file and YIN F0 (its report names ``utmos-ssl``); (e)
+   ``mos_statistics`` and ``pairwise_wilcoxon`` on the SSL MOS of phase 14's
+   synthesized and copy-synthesized items, every plot written where
+   matplotlib imports (each raising an ``ImportError`` that names it where
+   it does not); (f) the HF file pinned in a pins file of the work
+   directory and loaded by ``weights.load_verified``, a copy with one byte
+   altered refused; (g) ``python -m facegantts_tpu_torch.hyperopt`` over two
+   learning rates on phase 14's corpus (``use_gan=0``, batch 16, 2 steps,
+   the evaluation of 1 item at step 2 scored by the HF file), each trial a
+   trainer process on the card with a finite composite, ``results.json``
+   sorted, each trial's kernel launches read from its last line.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -1049,10 +1071,12 @@ _MISSING = object()
 class timed_calls:
     """Inside the block, each ``(owner, attribute, label)`` callable is
     wrapped to add its host seconds (its results reach the host, so they
-    include the device's) to ``self.seconds[label]``."""
+    include the device's) to ``self.seconds[label]`` and its result to
+    ``self.results[label]``."""
 
     def __init__(self, targets):
         self.targets, self.seconds, self.saved = targets, collections.Counter(), []
+        self.results = collections.defaultdict(list)
 
     def __enter__(self):
         for owner, attr, label in self.targets:
@@ -1061,9 +1085,11 @@ class timed_calls:
             def timed(*a, _fn=fn, _label=label, **k):
                 t0 = time.perf_counter()
                 try:
-                    return _fn(*a, **k)
+                    out = _fn(*a, **k)
                 finally:
                     self.seconds[_label] += time.perf_counter() - t0
+                self.results[_label].append(out)
+                return out
 
             self.saved.append((owner, attr, owner.__dict__.get(attr, _MISSING)))
             setattr(owner, attr, timed)
@@ -1106,7 +1132,8 @@ def eval_train(cfg, work_dir, device="cuda"):
             res = orig_run(self, state, step)
         records.append({"step": step, "results": res, "seconds": dict(tc.seconds),
                         "wall_s": time.perf_counter() - t0, "launches": pc.launches,
-                        "k1_fwd": dict(pc.fwd), "k1_bwd": dict(pc.bwd)})
+                        "k1_fwd": dict(pc.fwd), "k1_bwd": dict(pc.bwd),
+                        "copies": tc.results["copy-synthesis"]})
         total.update(pc.launches)
         kernels.LAUNCHES.clear()
         return res
@@ -1183,6 +1210,7 @@ def data_eval_phase(smi, face_png):
     if not all(os.path.exists(p) for p in samples):
         raise AssertionError(f"[eval] sample wavs missing in {step_dir}")
     out["eval_text"] = text
+    out["samples"], out["work"] = samples, work
 
     # the evaluate CLI: the evaluation's samples against the corpus wavs of those val clips
     import shutil
@@ -1210,8 +1238,432 @@ def data_eval_phase(smi, face_png):
     if not all(0.0 <= acc[k] <= 1.0 for k in ("voice_to_face_acc", "face_to_voice_acc")):
         raise AssertionError(f"[acc_measure] {acc}")
     out["acc"] = acc
-    out["cfg"] = cfg
+    out["cfg"], out["gt_dir"], out["packed"] = cfg, gt, packed
     return out
+
+
+# phase 15: the UTMOS-strong SSL MOS model at the wav2vec2 BASE widths
+MOS_SEED = 15
+MOS_SECONDS = (1, 4, 10)
+CONV_KERNELS, CONV_STRIDES = (10, 3, 3, 3, 3, 2, 2), (5, 2, 2, 2, 2, 2, 2)  # wav2vec2 BASE
+# the card against the port on the CPU, strict f32 (set before the first card
+# run from the CPU's f32-against-float64 differences at half and quarter
+# widths, 1 and 4 s: features 2.2e-6 to 3.1e-6, MOS 7.5e-9 to 2.8e-8)
+SSL_MOS_BAR, SSL_FEAT_BAR = 1e-5, 1e-4
+SWEEP_LRS = (1e-4, 1e-5)
+SWEEP_TIMEOUT_S = 600
+
+
+def mos_clip(seconds, seed):
+    """Phase-14-style harmonic speech-like audio, float in [-1, 1]."""
+    return corpus_clip(seconds, (100, 160), np.random.default_rng(seed)).astype(np.float32) / 32768
+
+
+def utmos_flops(sizes, n):
+    """(frames, {part: operations}) of one ``UTMOSStrong`` call on ``n``
+    samples, a multiply-add counted as 2."""
+    t, c_in, conv = n, 1, 0.0
+    for d, k, st in zip(sizes["conv_dims"], CONV_KERNELS, CONV_STRIDES):
+        t = (t - k) // st + 1
+        conv += 2.0 * t * d * c_in * k
+        c_in = d
+    h, f, lh = sizes["hidden"], sizes["ffn"], sizes["blstm_hidden"]
+    conv += 2.0 * t * c_in * h  # the feature projection
+    lstm_in = h + 2 * sizes["cond_dim"]
+    return t, {
+        "conv encoder": conv,
+        "positional conv": 2.0 * t * h * (h // sizes["pos_groups"]) * sizes["pos_kernel"],
+        "layers": sizes["layers"] * (8.0 * t * h * h + 4.0 * t * t * h + 4.0 * t * h * f),
+        "BiLSTM": 2 * 2.0 * t * (lstm_in + lh) * 4 * lh,
+        "head": 2.0 * t * 2 * lh * sizes["proj_hidden"] + 2.0 * t * sizes["proj_hidden"],
+    }
+
+
+def mos_parts(model, x):
+    """{part: callable} over ``model``'s parts, each on the input the part
+    before it gives for ``x``: the conv encoder (with the feature
+    projection), the positional conv (with the add and the encoder's
+    LayerNorm), the transformer layers, the BiLSTM (with the conditioning),
+    the head (with the frame mean)."""
+    import torch
+
+    w, enc = model.wav2vec2, model.wav2vec2.encoder
+
+    def layers(y):
+        for layer in enc["layers"]:
+            y = layer(y)
+        return y
+
+    def blstm(y):
+        cond = torch.cat([model.domain_emb.weight[0], model.judge_emb.weight[0]])
+        return model.blstm(torch.cat([y, cond.expand(*y.shape[:2], -1)], dim=-1))[0]
+
+    with torch.inference_mode():
+        h = w.feature_projection(w.feature_extractor(x))
+        p = enc["layer_norm"](h + enc["pos_conv_embed"](h))
+        y = layers(p)
+        z = blstm(y)
+    return {"conv encoder": lambda: w.feature_projection(w.feature_extractor(x)),
+            "positional conv": lambda: enc["layer_norm"](h + enc["pos_conv_embed"](h)),
+            "layers": lambda: layers(p), "BiLSTM": lambda: blstm(y),
+            "head": lambda: model.projection(z)[..., 0].mean(-1) * 2 + 3}
+
+
+def profile_ms(fn, n=3):
+    """(device ms, launches) of one call of ``fn`` under torch.profiler: the
+    sum over its kernels (kernels that overlap on other streams count in
+    full); (None, 0) where the profiler saw no device events three times."""
+    for _ in range(3):  # the profiler now and then returns no device events
+        per, _, count = device_profile(fn, n=n)
+        if per:
+            return sum(per.values()) / 1e3, sum(count.values())
+    return None, 0
+
+
+def run_sweep(cmd, timeout):
+    """Run the sweep's command, its output read line by line: (exit code,
+    lines, [seconds of each trial from its "running" line to its result
+    line]).  The command is killed after ``timeout`` seconds."""
+    import re
+    import threading
+
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    lines, trial_s, started = [], [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if line.startswith("[hyperopt] running:"):
+                started = time.perf_counter()
+            elif re.match(r"\[hyperopt\] trial \d+: composite=", line) and started is not None:
+                trial_s.append(time.perf_counter() - started)
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, lines, trial_s
+
+
+def mos_phase(smi, de):
+    """Phase 15: the UTMOS-strong SSL MOS model at the wav2vec2 BASE widths
+    on the card, through ``make_mos_predictor``, the ``evaluate`` CLI, the
+    analysis statistics, the weight pins and the hyperparameter sweep, on
+    phase 14's corpus and samples (``de``).  Raises on any failed check;
+    returns what it measured."""
+    import copy
+    import shutil
+
+    import torch
+    from scipy.io import wavfile
+
+    from facegantts_tpu_torch import weights
+    from facegantts_tpu_torch.evaluation import analysis, evaluate, ssl_mos, utmos
+    from facegantts_tpu_torch.evaluation.metrics import stft_mag
+    from facegantts_tpu_torch.ops import kernels
+
+    root = os.path.join(ROOT, "runs", "chip_smoke_mos")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+    kernels.LAUNCHES.clear()
+
+    # (a) one seeded model written twice: HF naming with parametrizations,
+    # fairseq naming with weight_g / weight_v
+    t0 = time.perf_counter()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(MOS_SEED)
+        model = ssl_mos.UTMOSStrong()
+    sd = model.state_dict()
+    sizes = ssl_mos.model_sizes(sd)
+    out["params"] = sum(p.numel() for p in model.parameters())
+    files = {"hf": os.path.join(root, "utmos_hf.pt"),
+             "fairseq": os.path.join(root, "utmos_fairseq.pt")}
+    torch.save(ssl_mos.reference_state_dict(sd, "hf", "parametrizations"), files["hf"])
+    torch.save({"state_dict": ssl_mos.reference_state_dict(sd, "fairseq", "g_v")},
+               files["fairseq"])
+    del model, sd
+    out["write_s"] = time.perf_counter() - t0
+    out["file_bytes"] = {k: os.path.getsize(v) for k, v in files.items()}
+    preds, out["load_s"] = {}, {}
+    for k, path in files.items():
+        t0 = time.perf_counter()
+        pred = utmos.make_mos_predictor(path)
+        out["load_s"][k] = time.perf_counter() - t0
+        devices = {p.device.type for p in pred.model.parameters()}
+        if not isinstance(pred, ssl_mos.SSLMOSPredictor) or devices != {"cuda"}:
+            raise AssertionError(f"[mos] {k} file: {type(pred).__name__} on {devices}")
+        # cuDNN's LSTM wants its weights in one buffer (else it compacts them at every call)
+        chunks = {p.untyped_storage().data_ptr() for p in pred.model.blstm.parameters()}
+        if len(chunks) != 1:
+            raise AssertionError(f"[mos] {k} file: the LSTM's weights lie in {len(chunks)} buffers")
+        preds[k] = pred
+    clips = {sec: mos_clip(sec, sec) for sec in MOS_SECONDS}
+    with strict_f32():
+        out["hf_fairseq"] = [preds[k](clips[4], 16000) for k in files]
+    if abs(out["hf_fairseq"][0] - out["hf_fairseq"][1]) > 1e-6:
+        raise AssertionError(f"[mos] HF and fairseq files differ: {out['hf_fairseq']}")
+    pred = preds.pop("hf")
+    del preds
+    torch.cuda.empty_cache()
+
+    # (b) the card against the port on the CPU, strict f32; the shift under
+    # PyTorch's TF32 defaults; the shift with every norm at torch's 1e-5
+    cpu = ssl_mos.model_from_state_dict(
+        {k: v.cpu() for k, v in pred.model.state_dict().items()}, device="cpu")
+    eps5 = copy.deepcopy(pred.model)
+    eps5.blstm.flatten_parameters()
+    for m in eps5.modules():
+        if isinstance(m, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+            m.eps = 1e-5
+    out["cpu_rows"] = []
+    for sec, wav in clips.items():
+        x = torch.from_numpy(wav)[None]
+        with torch.inference_mode():
+            with strict_f32():
+                feat_cpu, mos_cpu = cpu.wav2vec2(x), float(cpu(x))
+                feat_gpu = pred.model.wav2vec2(x.cuda()).cpu()
+                mos_gpu, mos_eps5 = pred(wav, 16000), float(eps5(x.cuda()))
+            with cudnn_mode(tf32=True, deterministic=False):  # PyTorch's defaults
+                mos_tf32 = pred(wav, 16000)
+        row = {"seconds": sec, "frames": feat_cpu.shape[1], "mos_cpu": mos_cpu,
+               "mos_gpu": mos_gpu, "mos_err": abs(mos_gpu - mos_cpu),
+               "feat_err": float((feat_gpu - feat_cpu).abs().max()),
+               "feat_max": float(feat_cpu.abs().max()), "tf32_shift": mos_tf32 - mos_gpu,
+               "eps5_shift": mos_eps5 - mos_gpu}
+        out["cpu_rows"].append(row)
+        if not (row["mos_err"] <= SSL_MOS_BAR and row["feat_err"] <= SSL_FEAT_BAR):
+            raise AssertionError(f"[mos] card against CPU at {sec} s: MOS {row['mos_err']:.3e} "
+                                 f"(bar {SSL_MOS_BAR}), features {row['feat_err']:.3e} "
+                                 f"(bar {SSL_FEAT_BAR})")
+    del cpu, eps5
+    torch.cuda.empty_cache()
+
+    # (c) warm time of a call, device time by part, launches, peak memory, at
+    # PyTorch's defaults (what the evaluation runs)
+    out["timing"] = []
+    weight_bytes = sum(p.numel() * p.element_size() for p in pred.model.parameters())
+    for sec, wav in clips.items():
+        x = torch.from_numpy(wav)[None].cuda()
+        ms = time_ms(lambda: pred(wav, 16000), iters=5, reps=5)
+        dev_ms, launches = profile_ms(lambda: pred(wav, 16000))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        pred(wav, 16000)
+        peak = torch.cuda.max_memory_allocated() - before  # above the weights and the rest
+        with torch.inference_mode():
+            parts = {k: (time_ms(fn, iters=5, reps=3), *profile_ms(fn))
+                     for k, fn in mos_parts(pred.model, x).items()}
+        frames, flops = utmos_flops(sizes, len(wav))
+        bound_ms, bound_by = bound(weight_bytes + 4 * len(wav), sum(flops.values()))
+        out["timing"].append({"seconds": sec, "frames": frames, "ms": ms, "dev_ms": dev_ms,
+                              "launches": launches, "peak": peak, "parts": parts,
+                              "gflop": {k: v / 1e9 for k, v in flops.items()},
+                              "bound_ms": bound_ms, "bound_by": bound_by})
+    out["weight_bytes"] = weight_bytes
+
+    # (d) the evaluate CLI over phase 14's samples, scored by the HF file (F0
+    # by YIN: phase 14 ran this CLI with WORLD, 20-35 s of host time)
+    step_dir = os.path.dirname(de["samples"][0])
+    t0 = time.perf_counter()
+    with timed_calls([(ssl_mos.SSLMOSPredictor, "__call__", "MOS")]) as tc:
+        res = evaluate.main([f"output_dir={step_dir}", f"ground_truth_dir={de['gt_dir']}",
+                             f"results_path={os.path.join(root, 'evaluation')}",
+                             f"mos_ckpt={files['hf']}", "f0_protocol=yin"])
+    out["evaluate_s"], out["evaluate_mos_s"] = time.perf_counter() - t0, tc.seconds["MOS"]
+    out["evaluate_mos_calls"] = len(tc.results["MOS"])
+    with open(os.path.join(root, "evaluation", "eval_output.txt")) as f:
+        text = f.read()
+    if (f"# backend mos: utmos-ssl checkpoint ({files['hf']})" not in text
+            or res["Paired Files"] != len(de["samples"])
+            or not all(math.isfinite(v) for v in res.values())):
+        raise AssertionError(f"[mos evaluate] {res}; eval_output.txt: {text[:400]!r}")
+    out["evaluate"] = res
+
+    # (e) the MOS-study statistics on phase 14's synthesized and
+    # copy-synthesized items, and every plot where matplotlib imports
+    synth = [wavfile.read(p)[1].astype(np.float32) / 32768 for p in de["samples"]]
+    ratings = {"synthesized": [pred(w, 16000) for w in synth],
+               "copy-synthesis": [pred(w, 16000) for w in de["eval"]["copies"]]}
+    out["ratings"] = ratings
+    out["stats"] = analysis.mos_statistics(ratings)
+    out["wilcoxon"] = analysis.pairwise_wilcoxon(ratings)
+    if not all(math.isfinite(v) for r in ratings.values() for v in r) or len(out["wilcoxon"]) != 1:
+        raise AssertionError(f"[mos analysis] {ratings}, {out['wilcoxon']}")
+    from facegantts_tpu_torch.data.dataset import load_packed
+
+    val = load_packed(de["cfg"], "val")
+    mels = [np.asarray(val[i]["y"], np.float32) for i in range(2)]
+    spec_db = 20 * np.log10(stft_mag(synth[0], 1024, 256).T + 1e-6)
+    plot_dir = os.path.join(root, "plots")
+    os.makedirs(plot_dir)
+    plots = [
+        ("mel.png", lambda p: analysis.save_mel_plot(mels[0], p, title="val 0")),
+        ("spectrogram.png", lambda p: analysis.save_spectrogram_db(spec_db, p, title="sample 0")),
+        ("comparison.png", lambda p: analysis.save_mel_comparison(
+            [("val 0", mels[0]), ("val 1", mels[1])], p)),
+        ("progress.png", lambda p: analysis.save_epoch_progress([(1, mels[0]), (2, mels[1])], p)),
+        ("faces.pdf", lambda p: analysis.save_face_grid_pdf(
+            [os.path.join(ROOT, "test", "face.png")] * 4, p, cols=2)),
+        ("curves.png", lambda p: analysis.plot_training_curves(
+            os.path.join(de["work"], "metrics.jsonl"), p)),
+    ]
+    try:
+        import matplotlib  # noqa: F401
+
+        out["matplotlib"] = True
+    except ImportError:
+        out["matplotlib"] = False
+    out["plots"] = {}
+    for name, call in plots:
+        path = os.path.join(plot_dir, name)
+        if out["matplotlib"]:
+            call(path)
+            out["plots"][name] = os.path.getsize(path)
+            continue
+        try:
+            call(path)
+        except ImportError as e:
+            if "matplotlib" not in str(e):
+                raise
+            out["plots"][name] = f"ImportError: {e}"
+        else:
+            raise AssertionError(f"[mos analysis] {name} written without matplotlib")
+
+    # (f) the HF file pinned into a pins file of the work directory, then
+    # loaded through the port's importer; a copy with one byte altered refused
+    pins = os.path.join(root, "weight_pins.json")
+    prev = os.environ.get("FACEGANTTS_WEIGHT_PINS")
+    os.environ["FACEGANTTS_WEIGHT_PINS"] = pins
+    try:
+        t0 = time.perf_counter()
+        out["digest"] = weights.pin("utmos22_strong", files["hf"])
+        state, info = weights.load_verified("utmos22_strong", files["hf"])
+        out["verified_s"] = time.perf_counter() - t0
+        if info["unmapped"] or set(state) != set(pred.model.state_dict()):
+            raise AssertionError(f"[weights] unmapped {info['unmapped'][:4]}")
+        del state
+        bad = os.path.join(root, "utmos_hf_altered.pt")
+        shutil.copy(files["hf"], bad)
+        with open(bad, "r+b") as f:
+            f.seek(out["file_bytes"]["hf"] // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 1]))
+        try:
+            weights.load_verified("utmos22_strong", bad)
+        except RuntimeError as e:
+            if "mismatch" not in str(e):
+                raise
+            out["refused"] = str(e).splitlines()[0]
+        else:
+            raise AssertionError("[weights] an altered file was loaded")
+        os.remove(bad)
+    finally:
+        if prev is None:
+            os.environ.pop("FACEGANTTS_WEIGHT_PINS")
+        else:
+            os.environ["FACEGANTTS_WEIGHT_PINS"] = prev
+    out["launches_in_process"] = dict(kernels.LAUNCHES)
+    del pred
+    torch.cuda.empty_cache()
+
+    # (g) the hyperparameter sweep: a grid of two learning rates, each trial a
+    # trainer process on the card with the in-training evaluation scored by
+    # the HF file
+    sweep_root = os.path.join(root, "sweep")
+    fixed = dict(packed_data_dir=de["packed"], use_gan=0, batch_size=EVAL_BATCH, num_gpus=1,
+                 max_steps=2, eval_interval=2, eval_n_samples=1, mos_ckpt=files["hf"],
+                 fused_gn_mish=1, log_every_n_steps=1)
+    with open(os.path.join(root, "sweep.json"), "w") as f:
+        json.dump({"fixed": fixed, "grid": {"learning_rate": list(SWEEP_LRS)}}, f)
+    t0 = time.perf_counter()
+    rc, lines, trial_s = run_sweep(
+        [sys.executable, "-m", "facegantts_tpu_torch.hyperopt",
+         f"config={os.path.join(root, 'sweep.json')}", f"out_root={sweep_root}"],
+        SWEEP_TIMEOUT_S)
+    out["sweep_s"], out["trial_s"] = time.perf_counter() - t0, trial_s
+    with open(os.path.join(root, "sweep.log"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    launch_lines = [json.loads(ln.split(": ", 1)[1]) for ln in lines
+                    if ln.startswith("[INFO] kernel launches: ")]
+    devices = [ln for ln in lines if ln.startswith("[INFO] use_gan=")]
+    with open(os.path.join(sweep_root, "results.json")) as f:
+        results = json.load(f)
+    out["sweep"], out["trial_launches"] = results, launch_lines
+    composites = [r["composite"] for r in results]
+    fails = []
+    if rc != 0 or any("trial failed" in ln for ln in lines):
+        fails.append(f"exit {rc}, failed trials {[ln for ln in lines if 'trial failed' in ln]}")
+    if sorted(r["params"]["learning_rate"] for r in results) != sorted(SWEEP_LRS):
+        fails.append(f"trials {[r['params'] for r in results]}")
+    if not all(math.isfinite(c) for c in composites) or composites != sorted(composites):
+        fails.append(f"composites {composites} (finite and sorted wanted)")
+    if len(devices) != len(SWEEP_LRS) or not all(ln.endswith("device=cuda") for ln in devices):
+        fails.append(f"trial devices {devices}")
+    if len(launch_lines) != len(SWEEP_LRS) or not all(
+            ll.get("gn_mish_mask", 0) > 0 and ll.get("maximum_path", 0) > 0
+            for ll in launch_lines):
+        fails.append(f"trial launches {launch_lines}")
+    for r in results:
+        path = os.path.join(sweep_root, f"trial_{r['trial']:03d}", "inference",
+                            "step_00000002", "eval_output.txt")
+        with open(path) as f:
+            if f"# backend mos: utmos-ssl checkpoint ({files['hf']})" not in f.read():
+                fails.append(f"{path} names another MOS backend")
+    if fails:
+        raise AssertionError("[sweep] " + "; ".join(fails) + "\n" + "\n".join(lines[-40:]))
+    out["files"] = files
+    return out
+
+
+def log_mos(smi, mo, de):
+    """Phase 15's lines from what ``mos_phase`` returned."""
+    log(f"[mos] {smi}: UTMOSStrong at the wav2vec2 BASE widths, {mo['params']} parameters "
+        f"(seed {MOS_SEED}), written as HF (parametrizations) and fairseq (weight_g/weight_v) "
+        f"files of {mo['file_bytes']} bytes in {mo['write_s']:.1f} s; make_mos_predictor -> "
+        f"SSLMOSPredictor on cuda in " + ", ".join(f"{k} {v:.1f} s" for k, v in mo["load_s"].items())
+        + f"; MOS of the 4 s clip HF {mo['hf_fairseq'][0]!r}, fairseq {mo['hf_fairseq'][1]!r}")
+    for r in mo["cpu_rows"]:
+        log(f"[mos] {smi}: {r['seconds']} s ({r['frames']} frames), strict f32: card MOS "
+            f"{r['mos_gpu']!r}, CPU {r['mos_cpu']!r}, |difference| {r['mos_err']:.3e} (bar "
+            f"{SSL_MOS_BAR}); features max |difference| {r['feat_err']:.3e} (bar {SSL_FEAT_BAR}, "
+            f"largest |feature| {r['feat_max']:.2f}); MOS shift under PyTorch's TF32 defaults "
+            f"{r['tf32_shift']:.3e}; with every norm at eps 1e-5 {r['eps5_shift']:.3e}")
+    for r in mo["timing"]:
+        log(f"[mos] {smi}: {r['seconds']} s ({r['frames']} frames), PyTorch's defaults: warm "
+            f"{r['ms']:.3f} ms a call (CUDA events, wav in, float out); device {fmt_ms(r['dev_ms'])} "
+            f"in {r['launches']:.0f} launches (the profiler's sum over kernels); by part (card "
+            f"ms by CUDA events, device ms, launches) " + ", ".join(
+                f"{k} {v[0]:.3f} / {fmt_ms(v[1])} / {v[2]:.0f}" for k, v in r["parts"].items())
+            + f"; GFLOP " + ", ".join(f"{k} {v:.3f}" for k, v in r["gflop"].items())
+            + f"; bound {r['bound_ms']:.3f} ms ({r['bound_by']}; weights "
+            f"{mo['weight_bytes']} bytes); the call's peak {r['peak'] / 2**20:.1f} MiB above "
+            f"what was allocated before it")
+    log(f"[mos evaluate] {smi}: python -m facegantts_tpu_torch.evaluation.evaluate with "
+        f"mos_ckpt=<HF file> f0_protocol=yin over phase 14's {len(de['samples'])} samples: "
+        f"{mo['evaluate_s']:.1f} s, "
+        f"the MOS part {mo['evaluate_mos_s'] * 1e3:.1f} ms in {mo['evaluate_mos_calls']} calls; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in mo["evaluate"].items()))
+    log(f"[mos analysis] SSL MOS of phase 14's items: " + "; ".join(
+        f"{k} {[round(v, 6) for v in vals]}" for k, vals in mo["ratings"].items()))
+    log(f"[mos analysis] mos_statistics {json.dumps(mo['stats'])}; pairwise_wilcoxon "
+        f"{json.dumps(mo['wilcoxon'])}")
+    log(f"[mos analysis] matplotlib {'imports: plots written' if mo['matplotlib'] else 'absent: each plot call raised'} "
+        f"{mo['plots']}")
+    log(f"[weights] {smi}: utmos22_strong pinned {mo['digest']} and loaded through "
+        f"load_verified in {mo['verified_s']:.1f} s; a copy with one byte altered refused: "
+        f"{mo['refused']}")
+    log(f"[sweep] {smi}: python -m facegantts_tpu_torch.hyperopt, grid learning_rate "
+        f"{list(SWEEP_LRS)}, use_gan=0, batch {EVAL_BATCH}, 2 steps, the evaluation of 1 item at "
+        f"step 2 scored by the HF file: {mo['sweep_s']:.1f} s; seconds a trial "
+        f"{[round(v, 1) for v in mo['trial_s']]}; results.json {json.dumps(mo['sweep'])}; "
+        f"trial launches {mo['trial_launches']}; launches in this process over (a)-(f) "
+        f"{mo['launches_in_process']}")
 
 
 def k1_bwd_bf16(shape, gen):
@@ -2888,6 +3340,15 @@ def main(argv=None) -> int:
             f"{k} {v:.2f}" for k, v in de["acc"].items()))
     de_launches = collections.Counter(de["train_launches"])
 
+    # ---- 15. the UTMOS-strong SSL MOS model, analysis, weight pins, the sweep --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mo = mos_phase(smi, de)
+    log_mos(smi, mo, de)
+    mo_launches = collections.Counter()
+    for ll in mo["trial_launches"]:
+        mo_launches.update(ll)
+
     # ---- lines -----------------------------------------------------------------
     f32 = per_eval[(436, torch.float32)]
     k1_err = max(r["err"] for (s, dt), r in results.items() if dt == torch.float32)
@@ -2899,14 +3360,15 @@ def main(argv=None) -> int:
         f"shape, launches on the inference ({path_launches[gn_mish.NAME]}), training "
         f"({tr['launches'][gn_mish.NAME]}), GAN ({gan['launches'][gn_mish.NAME]}), "
         f"persistence and serving ({per['launches'][gn_mish.NAME]}), training-option "
-        f"({opt_launches['K1']}) and data and evaluation ({de_launches[gn_mish.NAME]}) paths; "
+        f"({opt_launches['K1']}), data and evaluation ({de_launches[gn_mish.NAME]}) and sweep "
+        f"trial ({mo_launches[gn_mish.NAME]}, phase 15's trainer processes) paths; "
         f"{gn_mish.BWD_NAME} times are one training "
         f"evaluation's {K1_PER_EVAL} backward launches (B=64), max_abs_err against "
         f"gn_mish_mask_bwd_ref, launches on the training, GAN, resumed-GAN, "
         f"training-option ({opt_launches['K1 bwd bf16']} of them bf16; the bf16 backward's own "
-        f"times are phase 13's) and data and evaluation paths; {mas_mod.NAME} at "
-        f"{MAS_SHAPES[-1]}, launches on the training, GAN, resumed-GAN, training-option and "
-        f"data and evaluation paths; {gnorm.NAME} summed "
+        f"times are phase 13's), data and evaluation and sweep trial paths; {mas_mod.NAME} at "
+        f"{MAS_SHAPES[-1]}, launches on the training, GAN, resumed-GAN, training-option, "
+        f"data and evaluation and sweep trial paths; {gnorm.NAME} summed "
         f"over the "
         f"{len(K1_TRAIN)} "
         f"training U-Net shapes, launches in the FusedGroupNorm run; probes at their shapes, "
@@ -2924,20 +3386,20 @@ def main(argv=None) -> int:
         entry(gn_mish.NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:119",
               path_launches[gn_mish.NAME] + tr["launches"][gn_mish.NAME]
               + gan["launches"][gn_mish.NAME] + per["launches"][gn_mish.NAME]
-              + opt_launches["K1"] + de_launches[gn_mish.NAME],
+              + opt_launches["K1"] + de_launches[gn_mish.NAME] + mo_launches[gn_mish.NAME],
               dict(f32, bound_by=k1_by), k1_err),
         entry(gn_mish.BWD_NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:262",
               tr["launches"][gn_mish.BWD_NAME] + gan["launches"][gn_mish.BWD_NAME]
               + per["launches"][gn_mish.BWD_NAME] + opt_launches["K1 bwd"]
-              + de_launches[gn_mish.BWD_NAME],
+              + de_launches[gn_mish.BWD_NAME] + mo_launches[gn_mish.BWD_NAME],
               dict(bwd_only, library_ms=None, bound_by=(
                   collections.Counter(checks[("k1_bwd", s)]["bwd"]["bound_by"]
                                       for s, _ in K1_TRAIN).most_common(1)[0][0])),
               max(checks[("k1_bwd", s)]["bwd_abs_err"] for s, _ in K1_TRAIN)),
         entry(mas_mod.NAME, "csrc/mas.cu", "facegantts_tpu/ops/mas.py:38",
               tr["launches"][mas_mod.NAME] + gan["launches"][mas_mod.NAME]
-              + per["launches"][mas_mod.NAME] + opt_launches["MAS"] + de_launches[mas_mod.NAME],
-              mas_big, 0.0),
+              + per["launches"][mas_mod.NAME] + opt_launches["MAS"] + de_launches[mas_mod.NAME]
+              + mo_launches[mas_mod.NAME], mas_big, 0.0),
         entry(gnorm.NAME, "csrc/groupnorm.cu", "facegantts_tpu/ops/groupnorm.py:72",
               gn_launches[gnorm.NAME], dict(k2, bound_by=collections.Counter(
                   checks[("k2", s)]["bound_by"] for s, _ in K1_TRAIN).most_common(1)[0][0]),

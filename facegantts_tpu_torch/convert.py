@@ -10,7 +10,9 @@ each leaf), into the port's torch ``state_dict``s:
 - :func:`hifigan_state_dict`: HiFi-GAN ``params`` ->
   ``HiFiGANGenerator.state_dict()``;
 - :func:`discriminator_state_dict`: ``SpectrogramDiscriminator`` ``params``
-  (parity family, weight norm) -> the port's discriminator state_dict.
+  (parity family, weight norm) -> the port's discriminator state_dict;
+- :func:`utmos_state_dict`: the SSL MOS model ``UTMOSStrong``'s ``params``
+  -> the port's ``UTMOSStrong`` state_dict.
 
 Layouts: conv kernels (kh, kw, I, O) / (k, I, O) become (O, I, kh, kw) /
 (O, I, k); Dense layers that stand in for 1x1 convs become (O, I, 1[, 1]);
@@ -284,4 +286,52 @@ def discriminator_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             sd.put(tname + ".weight_g", scale.reshape(-1, 1, 1, 1))
             sd.put(tname + ".weight_v", _conv2d(params[fname]["kernel"]))
         sd.put(tname + ".bias", params[fname]["bias"])
+    return dict(sd)
+
+
+def utmos_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``UTMOSStrong`` ``params`` (``evaluation/ssl_mos.py``) -> the
+    port's ``UTMOSStrong`` state_dict, the wav2vec2 encoder under
+    ``wav2vec2.`` in HuggingFace's names.  The BiLSTM's folded bias ``b``
+    becomes ``bias_ih`` with a zero ``bias_hh``; each 1-D embedding one row."""
+    ssl, w = params["ssl"], "wav2vec2."
+    sd = _SD()
+
+    def norm(name, p):
+        sd.put(name + ".weight", p["scale"])
+        sd.put(name + ".bias", p["bias"])
+
+    fe = ssl["feature_extractor"]
+    i = 0
+    while f"conv_{i}" in fe:
+        sd.put(f"{w}feature_extractor.conv_layers.{i}.conv.weight",
+               _conv1d(fe[f"conv_{i}"]["kernel"]))
+        i += 1
+    norm(w + "feature_extractor.conv_layers.0.layer_norm", fe["group_norm"])
+    norm(w + "feature_projection.layer_norm", ssl["feature_projection"]["layer_norm"])
+    _linear(sd, w + "feature_projection.projection", ssl["feature_projection"]["projection"])
+    pos = ssl["pos_conv_embed"]["conv"]
+    sd.put(w + "encoder.pos_conv_embed.conv.weight", _conv1d(pos["kernel"]))
+    sd.put(w + "encoder.pos_conv_embed.conv.bias", pos["bias"])
+    norm(w + "encoder.layer_norm", ssl["encoder_layer_norm"])
+    i = 0
+    while f"layer_{i}" in ssl:
+        p, pre = ssl[f"layer_{i}"], f"{w}encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, pre + "attention." + n, p[n])
+        for n in ("intermediate_dense", "output_dense"):
+            _linear(sd, pre + "feed_forward." + n, p[n])
+        norm(pre + "layer_norm", p["layer_norm"])
+        norm(pre + "final_layer_norm", p["final_layer_norm"])
+        i += 1
+    for n in ("domain_emb", "judge_emb"):
+        sd.put(n + ".weight", _a(params[n]).reshape(1, -1))
+    bl = params["blstm"]
+    for tag, suf in (("fwd", ""), ("bwd", "_reverse")):
+        sd.put(f"blstm.weight_ih_l0{suf}", _a(bl[f"w_ih_{tag}"]).T)
+        sd.put(f"blstm.weight_hh_l0{suf}", _a(bl[f"w_hh_{tag}"]).T)
+        sd.put(f"blstm.bias_ih_l0{suf}", bl[f"b_{tag}"])
+        sd.put(f"blstm.bias_hh_l0{suf}", np.zeros_like(_a(bl[f"b_{tag}"])))
+    _linear(sd, "projection.0", params["proj_in"])
+    _linear(sd, "projection.2", params["proj_out"])
     return dict(sd)

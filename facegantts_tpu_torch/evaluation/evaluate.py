@@ -58,9 +58,10 @@ def load_syncnet(cfg: Config, device=None):
         model = SyncNet(n_out=cfg.vid_emb_dim, stride=cfg.syncnet_stride)
     provenance = None
     if cfg.syncnet_ckpt and os.path.exists(cfg.syncnet_ckpt):
-        raw = torch.load(cfg.syncnet_ckpt, map_location="cpu", weights_only=False)
-        sd = raw.get("state_dict", raw)
-        missing, _ = model.load_state_dict(sd, strict=False)
+        from facegantts_tpu_torch.train.checkpoint import load_syncnet_state_dict
+
+        missing, _ = model.load_state_dict(load_syncnet_state_dict(cfg.syncnet_ckpt),
+                                           strict=False)
         missing = [k for k in missing if not k.endswith("num_batches_tracked")]
         if missing:
             raise KeyError(f"syncnet_ckpt {cfg.syncnet_ckpt}: no {missing[:4]} ...")
@@ -165,7 +166,7 @@ def evaluate_pairs(
     if max_files:
         gen_wavs = gen_wavs[:max_files]
     syncnet_apply = build_syncnet_apply(cfg, device)
-    mos = make_mos_predictor(cfg.mos_ckpt)
+    mos = make_mos_predictor(cfg.mos_ckpt, device)
     provenance = backend_provenance(cfg, syncnet_apply, mos)
     for line in provenance:
         print(line)

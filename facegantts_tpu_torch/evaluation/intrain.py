@@ -75,7 +75,7 @@ class IntrainEvaluator:
             syncnet_apply if syncnet_apply is not None
             else build_syncnet_apply(cfg, self.synth.device)
         )
-        self.mos = make_mos_predictor(cfg.mos_ckpt)
+        self.mos = make_mos_predictor(cfg.mos_ckpt, self.synth.device)
         # every in-train eval_output.txt says which backends were real
         # pretrained models vs fallbacks, plus whether the vocoder was imported
         self.provenance = backend_provenance(cfg, self.syncnet_apply, self.mos)

@@ -26,10 +26,9 @@ backends:
 Scores are reported under the same ``UTMOS`` key the reference writes so
 downstream regex parsers (custom_callbacks.py:13-55) keep working.
 
-The JAX package's third backend, the UTMOS-strong SSL model
-(``evaluation/ssl_mos.py`` with ``models/wav2vec2.py``), is not ported yet
-(ROADMAP §1): an SSL checkpoint raises ``NotImplementedError`` here rather
-than pass a different predictor off as that model.
+``make_mos_predictor`` prefers a third backend over both: the UTMOS-strong
+SSL model itself (``evaluation/ssl_mos.py`` with ``models/wav2vec2.py``),
+when the checkpoint is one.
 """
 
 from typing import Dict, Optional
@@ -178,54 +177,42 @@ def load_torch_mos_head(ckpt_path: str) -> LinearHeadMOSPredictor:
     return LinearHeadMOSPredictor(w, b)
 
 
-# the prefixes the JAX package's ssl_mos.py strips from an SSL checkpoint's keys
-_SSL_PREFIXES = ("model.", "ssl_model.model.", "ssl_model.", "wav2vec2.",
-                 "ssl.", "feature_extractors.0.", "encoder_model.")
+def make_mos_predictor(ckpt_path: Optional[str] = None, device=None):
+    """Factory, in the JAX package's order of fidelity:
 
-
-def _strip(key: str) -> str:
-    changed = True
-    while changed:
-        changed = False
-        for p in _SSL_PREFIXES:
-            if key.startswith(p):
-                key = key[len(p):]
-                changed = True
-    return key
-
-
-def looks_like_ssl_checkpoint(sd: Dict) -> bool:
-    """The JAX package's ``ssl_mos.looks_like_ssl_checkpoint``: a wav2vec2
-    feature extractor's conv layers among the keys."""
-    return any("feature_extractor.conv_layers" in _strip(k) for k in sd)
-
-
-def make_mos_predictor(ckpt_path: Optional[str] = None):
-    """Factory, in the JAX package's order:
-
-    1. a full UTMOS-strong/wav2vec2 SSL checkpoint -> ``NotImplementedError``
-       (``evaluation/ssl_mos.py`` and ``models/wav2vec2.py`` are not ported
-       yet, ROADMAP §1);
+    1. a full UTMOS-strong/wav2vec2 SSL checkpoint -> the real architecture
+       (evaluation/ssl_mos.py) on ``device`` (the GPU unless the caller asks
+       for the CPU), reproducing reference UTMOS scores;
     2. a bare linear regression head -> LinearHeadMOSPredictor over the DSP
        features;
     3. nothing/unloadable -> the DSP calibration proxy (mirrors the
-       reference's graceful degradation when torch.hub is unreachable)."""
-    if ckpt_path:
-        ssl = False
-        try:
-            import torch
+       reference's graceful degradation when torch.hub is unreachable).
 
+    As in JAX, a file that cannot be read or imported falls through to the
+    next backend.  The SSL model is built and moved to ``device`` outside
+    that fallback: a fault there (no GPU, a key the file lacks) raises."""
+    if ckpt_path:
+        import torch
+
+        from facegantts_tpu_torch.evaluation import ssl_mos
+
+        imported = None
+        try:
             sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
             if isinstance(sd, dict) and "state_dict" in sd:
                 sd = sd["state_dict"]
-            ssl = looks_like_ssl_checkpoint(sd)
+            if ssl_mos.looks_like_ssl_checkpoint(sd):
+                state, info = ssl_mos.import_utmos_strong(sd)
+                ssl_mos.model_sizes(state)  # unsizable -> next backend, as in JAX
+                if info["unmapped"]:
+                    print(f"[WARN] UTMOS import: {len(info['unmapped'])} "
+                          "torch keys unmapped (first: "
+                          f"{info['unmapped'][:3]})")
+                imported = state
         except Exception as e:
             print(f"[WARN] SSL MOS import failed ({e}); trying linear head")
-        if ssl:
-            raise NotImplementedError(
-                f"mos_ckpt={ckpt_path!r} is a UTMOS-strong (wav2vec2 SSL) checkpoint: the "
-                "port has no ssl_mos / wav2vec2 model yet (ROADMAP §1); unset mos_ckpt for "
-                "the DSP proxy, or score with the JAX package")
+        if imported is not None:
+            return ssl_mos.SSLMOSPredictor(ssl_mos.model_from_state_dict(imported, device=device))
         try:
             return load_torch_mos_head(ckpt_path)
         except Exception as e:  # missing/foreign ckpt -> proxy

@@ -7,9 +7,12 @@ Every Config key works as an override (environment variables and
 ``config=<file.json>`` too).  Trains the GAN (``use_gan=1``, the Config
 default: the discriminator and the fused D+G step) or, with ``use_gan=0``,
 the plain FaceTTS step, on the GPU unless ``device=cpu``; ``work_dir=``
-(default ``runs/default``) receives ``metrics.jsonl``.
+(default ``runs/default``) receives ``metrics.jsonl``.  The last line
+printed gives the hand-written kernels' launches over the run
+(``ops/kernels.py: LAUNCHES``; none on the CPU).
 """
 
+import json
 import sys
 
 from facegantts_tpu_torch.config import default_config, parse_cli_overrides
@@ -22,9 +25,11 @@ def main(argv=None):
     cfg = default_config(overrides=overrides)
     print(f"[INFO] use_gan={cfg.use_gan} batch_size={cfg.batch_size} "
           f"max_steps={cfg.max_steps} work_dir={work_dir} device={device or 'cuda'}")
+    from facegantts_tpu_torch.ops import kernels
     from facegantts_tpu_torch.train.loop import train
 
     train(cfg, work_dir=work_dir, device=device)
+    print(f"[INFO] kernel launches: {json.dumps(dict(kernels.LAUNCHES), sort_keys=True)}")
 
 
 if __name__ == "__main__":

@@ -233,6 +233,15 @@ def load_facetts_state_dict(path: str) -> Dict[str, torch.Tensor]:
             if not k.startswith(("discriminator", "feature_extractor"))}
 
 
+def load_syncnet_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference SyncNet file (``syncnet_ckpt``) -> its ``state_dict`` (the
+    ``state_dict`` entry when there is one; the JAX
+    ``import_syncnet_checkpoint``).  Loads with ``weights_only=False``, as
+    the JAX package does: read only files you trust."""
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    return raw.get("state_dict", raw)
+
+
 def merge_state_dict(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> List[str]:
     """strict=False by name and shape (the JAX ``merge_imported``): each key
     of ``sd`` that ``model`` has with the same shape is copied in; every

@@ -15,8 +15,8 @@
 - the numpy copies: ``metrics`` (YIN, mel-cepstra, DTW, MCD, LSD, log-F0
   RMSE by YIN and pYIN, the composite), ``pyin``, ``world_log_f0_rmse``,
   the DSP MOS proxy and a linear-head ``.pt`` equal JAX's to 1e-12 on
-  seeded voiced and unvoiced signals; an SSL (wav2vec2) MOS checkpoint
-  raises by name;
+  seeded voiced and unvoiced signals; a file that only looks like an SSL
+  (wav2vec2) MOS checkpoint falls through to its linear head as in JAX;
 - ``score_wav_pair`` for each ``f0_protocol`` and the ``evaluate`` CLI's
   ``eval_output.txt``, both packages scoring with one full-width SyncNet
   (a port ``state_dict`` saved as the ``syncnet_ckpt`` file): speaker
@@ -69,7 +69,7 @@ from facegantts_tpu_torch.config import default_config
 from facegantts_tpu_torch.data.dataset import SyntheticDataset
 from facegantts_tpu_torch.evaluation import acc_measure, evaluate
 from facegantts_tpu_torch.evaluation import metrics as M
-from facegantts_tpu_torch.evaluation import pyin, utmos, world
+from facegantts_tpu_torch.evaluation import pyin, ssl_mos, utmos, world
 from facegantts_tpu_torch.evaluation.intrain import IntrainEvaluator
 from facegantts_tpu_torch.models.hifigan import HiFiGANGenerator
 from facegantts_tpu_torch.models.syncnet import SyncNet
@@ -235,10 +235,11 @@ def test_metrics_match_jax(pair):
 
 
 def test_mos_head_and_ssl_refusal(tmp_path, capsys):
-    """A linear-head ``.pt`` scores as JAX's; an SSL (wav2vec2) checkpoint
-    raises by name instead of passing the head or the proxy off as
-    UTMOS-strong; a missing file degrades to the DSP proxy with JAX's
-    warning."""
+    """A linear-head ``.pt`` scores as JAX's; a file that only looks like an
+    SSL (wav2vec2) checkpoint fails to import and, as in JAX, falls through to
+    its linear head, warning by name (a real SSL file gives the SSL model:
+    ``tests/test_torch_ssl_mos.py``); a missing file degrades to the DSP
+    proxy with JAX's warning."""
     head = tmp_path / "head.pt"
     torch.save({"backbone.weight": torch.ones(3, 3), "backbone.bias": torch.zeros(3),
                 "head.weight": torch.tensor([[0.5, -1.0, -0.8, -0.3, 0.9]]),
@@ -251,11 +252,14 @@ def test_mos_head_and_ssl_refusal(tmp_path, capsys):
     torch.save({"state_dict": {
         "ssl_model.model.feature_extractor.conv_layers.0.conv.weight": torch.zeros(4, 1, 10),
         "head.weight": torch.zeros(1, 5), "head.bias": torch.zeros(1)}}, ssl)
-    assert utmos.looks_like_ssl_checkpoint(
+    assert ssl_mos.looks_like_ssl_checkpoint(
         torch.load(ssl, weights_only=True)["state_dict"])
-    with pytest.raises(NotImplementedError, match="ssl_mos.*wav2vec2.*ROADMAP"):
-        utmos.make_mos_predictor(str(ssl))
     capsys.readouterr()
+    ours, theirs = utmos.make_mos_predictor(str(ssl)), jutmos.make_mos_predictor(str(ssl))
+    assert type(ours).__name__ == type(theirs).__name__ == "LinearHeadMOSPredictor"
+    assert capsys.readouterr().out.count("SSL MOS import failed") == 2
+    for y, _ in _pairs():
+        _eq(ours(y, SR), theirs(y, SR))
     assert isinstance(utmos.make_mos_predictor(str(tmp_path / "none.pt")),
                       utmos.DSPMOSPredictor)
     assert "using DSP proxy" in capsys.readouterr().out

@@ -1,6 +1,8 @@
 """Boundaries of the PyTorch port: it imports neither JAX nor the JAX
-package, its entry points never move to the CPU on their own, and
-``chip_smoke.py`` fails (with no result line) where it cannot run."""
+package nor ``transformers``, and ``matplotlib`` only inside the functions
+that plot (the GPU machine has neither), its entry points never move to the
+CPU on their own, and ``chip_smoke.py`` fails (with no result line) where it
+cannot run."""
 
 import ast
 import importlib
@@ -21,7 +23,9 @@ PORT_FILES = sorted(
     os.path.relpath(os.path.join(d, f), ROOT)
     for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")
 ) + ["chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "facegantts_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "facegantts_tpu", "transformers")
+# absent on the GPU machine: a port module imports it only inside a function
+LAZY = ("matplotlib",)
 
 
 def _port_modules():
@@ -36,16 +40,18 @@ def _env():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module imports in a fresh interpreter where importing jax, flax
-    or the JAX package fails."""
+    """Every module imports in a fresh interpreter where importing jax, flax,
+    the JAX package, transformers or matplotlib fails."""
     mods = _port_modules()
     assert {"facegantts_tpu_torch.synthesis", "facegantts_tpu_torch.train.loop",
             "facegantts_tpu_torch.ops.mas", "facegantts_tpu_torch.probe",
             "facegantts_tpu_torch.models.discriminator", "facegantts_tpu_torch.serve",
-            "facegantts_tpu_torch.train.checkpoint"} <= set(mods)
+            "facegantts_tpu_torch.train.checkpoint", "facegantts_tpu_torch.models.wav2vec2",
+            "facegantts_tpu_torch.evaluation.ssl_mos", "facegantts_tpu_torch.evaluation.analysis",
+            "facegantts_tpu_torch.weights", "facegantts_tpu_torch.hyperopt"} <= set(mods)
     code = (
         "import sys\n"
-        + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
+        + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN + LAZY)
         + "import importlib\n"
         + f"for m in {mods!r}:\n    importlib.import_module(m)\n"
         + "print('ok')\n"
@@ -59,6 +65,9 @@ def test_port_imports_with_jax_blocked():
 def test_no_jax_or_jax_package_import(path):
     with open(os.path.join(ROOT, path)) as f:
         tree = ast.parse(f.read(), filename=path)
+    in_functions = {id(n) for fn in ast.walk(tree)
+                    if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                    for n in ast.walk(fn)}
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -68,6 +77,8 @@ def test_no_jax_or_jax_package_import(path):
             continue
         for n in names:
             assert n.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {n}"
+            assert n.split(".")[0] not in LAZY or id(node) in in_functions, (
+                f"{path}:{node.lineno} imports {n} outside a function")
 
 
 def test_synthesizer_without_cuda_raises(monkeypatch):
@@ -154,7 +165,8 @@ def test_port_package_layout_mirrors_jax_package():
     for mod in ("config", "synthesis", "ops.align", "ops.gn_mish", "ops.mas",
                 "ops.groupnorm", "models.unet", "models.diffusion", "models.text_encoder",
                 "models.syncnet", "models.facetts", "models.hifigan", "models.discriminator",
-                "text.cmudict",
+                "text.cmudict", "models.wav2vec2", "evaluation.ssl_mos", "evaluation.analysis",
+                "weights", "hyperopt",
                 "utils.audio", "data.dataset", "train.state", "train.optim", "train.step",
                 "train.loop", "train.checkpoint", "serve"):
         importlib.import_module(f"facegantts_tpu_torch.{mod}")
