@@ -169,6 +169,30 @@ non-zero and prints no result line):
    the evaluation of 1 item at step 2 scored by the HF file), each trial a
    trainer process on the card with a finite composite, ``results.json``
    sorted, each trial's kernel launches read from its last line.
+16. the tooling slice, at the Config widths, under ``runs/chip_smoke_tooling``:
+   (a) the (text, mel) bucket pair the first test sentence lands in
+   (random weights, seed 0, temperature 8): in bf16 exported by
+   ``export.export_bundle`` in the process; in f32 written as a
+   reference-named file, migrated by ``python -m
+   facegantts_tpu_torch.migrate_checkpoint`` (``use_gan=0``; also
+   ``mode=fix-lightning``) and exported by ``python -m
+   facegantts_tpu_torch.export`` from the migrated directory; each loaded by
+   ``load_bundle`` and held to ``Synthesizer.synthesize`` with the same seed
+   (wav within 1e-5, mel within 5e-4; bitwise equality printed), 250 K1
+   launches a loaded call, export and load seconds, a loaded call against a
+   live one in turns; then K1 on the live bf16 path called directly and
+   through its registered op ``facegantts::gn_mish_mask`` in turns, and the
+   host time of one K1 call each way; (b) ``python -m
+   facegantts_tpu_torch.bench`` (``BENCH_TRAIN=1``): its four metric lines
+   finite and positive, ``inference_rtf`` last,
+   ``0 < mfu_parity < 1``, its launches read from its last stderr line; (c)
+   ``train()`` (``use_gan=0``, batch 64) with a ``profile_dir`` and a
+   two-step window: one trace file naming K1's forward and backward
+   kernels, MAS's and the loop's ``train_step`` span; (d) ``python -m
+   facegantts_tpu_torch.utils.flops`` (run beside (a)'s bf16 export, as the
+   f32 CLIs are; nothing is timed while they run): the parts at the bench's
+   shape, one real step counting the composed step less the two
+   discriminator forwards on the fake that it reuses.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -1666,6 +1690,318 @@ def log_mos(smi, mo, de):
         f"{mo['launches_in_process']}")
 
 
+# phase 16: the tooling slice
+EXPORT_SEEDS = (7, 8)  # a loaded call against the live one, each seed
+EXPORT_TURNS = (0, 1, 1, 0) * 3  # 0 the loaded program, 1 the live Synthesizer
+OP_TURNS = (0, 1, 1, 0) * 10  # K1 on the live path: 0 called directly, 1 through the op
+OP_HOST_TURNS = (0, 1, 1, 0) * 2  # the host time of one K1 call each way, in turns
+PROFILE_WINDOW = (1, 2)  # the traced training steps: start, count
+BENCH_METRICS = ("train_samples_per_sec_parity", "mfu_parity",
+                 "train_samples_per_sec_bucket_mix", "inference_rtf")
+
+
+def run_module(args, timeout, env=None):
+    """``python -m <args>`` from the repository root: (exit code, stdout,
+    stderr, seconds); the child is killed at ``timeout``."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout, env=dict(os.environ, **(env or {})))
+    return p.returncode, p.stdout, p.stderr, time.perf_counter() - t0
+
+
+def export_check(tag, synth, fn, ids, texts, face, launches):
+    """Phase 16 (a) in one precision: a loaded program ``fn`` of the pair
+    the first test sentence (``ids``) lands in, held to ``synth`` at
+    ``EXPORT_SEEDS`` (wav 1e-5, mel 5e-4, the bars of tests/test_export.py),
+    250 K1 launches a call, and timed against it in turns.  Adds the
+    launches to ``launches``."""
+    import torch
+
+    from facegantts_tpu_torch.ops import gn_mish, kernels
+
+    cfg = synth.cfg
+    tx, ty = cfg.text_buckets[0], cfg.mel_buckets[0]
+    x = np.zeros((1, tx), np.int32)
+    x[0, :len(ids)] = ids
+    x_len = np.array([len(ids)], np.int32)
+    face_b = face[None]
+    gaps = []
+    for seed in EXPORT_SEEDS:
+        kernels.LAUNCHES.clear()
+        wav, mel_l, y_len = fn(x, x_len, face_b, seed)
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        launches.update(got)
+        if got.get(gn_mish.NAME, 0) != K1_PER_EVAL * cfg.timesteps or len(got) != 1:
+            raise AssertionError(f"[export {tag}] a loaded call launched {got}")
+        ref_wav, ref_mel = synth.synthesize(texts[0], face, seed=seed)
+        n = int(y_len[0])
+        w = np.clip(wav[0, :n * cfg.hop_len].cpu().numpy(), -1.0, 1.0)
+        m = mel_l[0, :, :n].cpu().numpy()
+        if w.shape != ref_wav.shape or m.shape != ref_mel.shape:
+            raise AssertionError(f"[export {tag}] shapes {w.shape} {m.shape} against "
+                                 f"{ref_wav.shape} {ref_mel.shape}")
+        gw, gm = float(np.abs(w - ref_wav).max()), float(np.abs(m - ref_mel).max())
+        gaps.append({"seed": seed, "wav": gw, "mel": gm, "frames": n,
+                     "bitwise": bool(np.array_equal(w, ref_wav) and np.array_equal(m, ref_mel))})
+        if not (np.isfinite(w).all() and gw <= 1e-5 and gm <= 5e-4):
+            raise AssertionError(f"[export {tag}] seed {seed}: loaded against live wav "
+                                 f"{gw:.3e} (bar 1e-5) mel {gm:.3e} (bar 5e-4)")
+
+    def loaded_call():
+        wav_, mel_, _ = fn(x, x_len, face_b, EXPORT_SEEDS[0])
+        return wav_.cpu(), mel_.cpu()
+
+    def live_call():
+        return synth.synthesize(texts[0], face, seed=EXPORT_SEEDS[0])
+
+    loaded_call(), live_call()
+    times = {0: [], 1: []}
+    for which in EXPORT_TURNS:
+        t0 = time.perf_counter()
+        (live_call if which else loaded_call)()
+        times[which].append((time.perf_counter() - t0) * 1e3)
+    return {"pair": (tx, ty), "gaps": gaps, "loaded_ms": times[0], "live_ms": times[1]}
+
+
+def tooling_phase(smi, texts, face, cmu):
+    """Phase 16: (a) the bucket pair the first test sentence lands in, at
+    the Config widths (random weights, seed 0): in bf16 exported by
+    ``export_bundle`` in the process; in f32 written as a reference-named
+    file, migrated by ``python -m facegantts_tpu_torch.migrate_checkpoint``
+    (also ``mode=fix-lightning``) and exported by ``python -m
+    facegantts_tpu_torch.export`` from the migrated directory; each loaded
+    and held to its live Synthesizer (``export_check``); then K1 on the live
+    bf16 path called directly and through its registered op in turns; (b)
+    ``python -m facegantts_tpu_torch.bench``; (c) ``train()`` with a traced
+    window; (d) ``python -m facegantts_tpu_torch.utils.flops``, beside (a)'s
+    export.  Raises on a failed check; returns what it measured."""
+    import glob
+    import re
+    import shutil
+    import threading
+
+    import torch
+
+    from facegantts_tpu_torch.config import default_config
+    from facegantts_tpu_torch.data.dataset import SyntheticDataset
+    from facegantts_tpu_torch.export import export_bundle, load_bundle
+    from facegantts_tpu_torch.models import unet as unet_mod
+    from facegantts_tpu_torch.ops import gn_mish, kernels
+    from facegantts_tpu_torch.synthesis import Synthesizer, pick_bucket
+    from facegantts_tpu_torch.train.loop import train
+
+    root = os.path.join(ROOT, "runs", "chip_smoke_tooling")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    out = {"export": {}, "seconds": {}}
+
+    # (a) the pair's programs: bf16 exported here while, in the background,
+    # the f32 weights go through the migration and export CLIs and the FLOP
+    # audit (d) counts; nothing is timed until both are done
+    t_part = time.perf_counter()
+    synths, overs, pairs = {}, {}, {}
+    for bf16 in (1, 0):
+        tag = "bf16" if bf16 else "f32"
+        overs[tag] = dict(fused_gn_mish=1, use_bf16=bf16, timesteps=10, temperature=8.0)
+        synth = Synthesizer(default_config(env={}, overrides=overs[tag]), cmudict=cmu, seed=0,
+                            device="cuda")
+        ids = synth.encode_text(texts[0])
+        _, mel = synth.synthesize(texts[0], face)
+        pairs[tag] = (pick_bucket(len(ids), synth.cfg.text_buckets),
+                      pick_bucket(mel.shape[1], synth.cfg.mel_buckets))
+        synth.cfg = synth.cfg.replace(text_buckets=(pairs[tag][0],),
+                                      mel_buckets=(pairs[tag][1],))
+        synths[tag] = synth
+    bundles = {tag: os.path.join(root, f"bundle_{tag}") for tag in synths}
+    ref = os.path.join(root, "reference.pt")
+    torch.save({"state_dict": {**{k: v.cpu() for k, v in synths["f32"].model.state_dict().items()},
+                               "discriminator.conv.weight": torch.ones(3)}}, ref)
+    migrated = os.path.join(root, "migrated")
+    tx, ty = pairs["f32"]
+    calls = {
+        "migrate_checkpoint": [f"src={ref}", f"dst={migrated}", "use_gan=0"],
+        "migrate_checkpoint fix-lightning": [f"src={ref}", f"dst={os.path.join(root, 'fixed.ckpt')}",
+                                             "mode=fix-lightning"],
+        "export": [f"out_dir={bundles['f32']}", f"resume_from={migrated}", f"text_buckets={tx}",
+                   f"mel_buckets={ty}", *(f"{k}={v}" for k, v in overs["f32"].items())],
+        "utils.flops": []}
+    done = {}
+
+    def chain(names):
+        for name in names:
+            done[name] = run_module([f"facegantts_tpu_torch.{name.split()[0]}", *calls[name]], 600)
+            if done[name][0] != 0:
+                return
+
+    threads = [threading.Thread(target=chain, args=(names,)) for names in (
+        ["migrate_checkpoint", "migrate_checkpoint fix-lightning", "export"], ["utils.flops"])]
+    for t in threads:
+        t.start()
+    try:
+        t0 = time.perf_counter()
+        export_bundle(synths["bf16"], bundles["bf16"])
+        bf16_export_s = time.perf_counter() - t0
+    finally:
+        for t in threads:
+            t.join()
+    for name in calls:
+        if name not in done or done[name][0] != 0:
+            raise AssertionError(f"[cli] {name}: {done.get(name, (None, '', 'not run'))[2][-3000:]}")
+    if "pytorch-lightning_version" not in torch.load(os.path.join(root, "fixed.ckpt"),
+                                                     weights_only=False):
+        raise AssertionError("[cli] fix-lightning wrote no version key")
+    for tag, synth in synths.items():
+        tx, ty = pairs[tag]
+        rec = {f"{name} s": done[name][3] for name in calls if tag == "f32" and name != "utils.flops"}
+        rec["export_s"] = bf16_export_s if tag == "bf16" else float(
+            re.search(r"exported .* in ([0-9.]+) s", done["export"][1]).group(1))
+        t0 = time.perf_counter()
+        _, loaded = load_bundle(bundles[tag])
+        rec["load_s"] = time.perf_counter() - t0
+        rec["bytes"] = os.path.getsize(os.path.join(bundles[tag], f"synth_tx{tx}_ty{ty}.pt2"))
+        # as phase 12: f32 with TF32 off and cuDNN's deterministic algorithms,
+        # where an f32 result does not depend on the algorithm cuDNN picks
+        # (under PyTorch's TF32 defaults two live f32 calls differ in the
+        # vocoder); bf16 at PyTorch's defaults
+        with cudnn_mode(tf32=tag == "bf16", deterministic=tag == "f32"):
+            rec.update(export_check(tag, synth, loaded[(tx, ty)], synth.encode_text(texts[0]),
+                                    texts, face, launches))
+        out["export"][tag] = rec
+
+    # K1 on the live path (the bf16 request): its checks and the kernel
+    # launch called directly, or the registered op, in turns
+    synth = synths["bf16"]
+    op = torch.ops.facegantts.gn_mish_mask
+
+    def direct(x_, scale, bias, lens, num_groups=8, eps=1e-5):
+        gn_mish._check_inputs(x_, scale, bias, lens, num_groups)
+        return gn_mish._launch_fwd(x_, scale, bias, lens, num_groups, eps, False)[0]
+
+    def via_op(x_, scale, bias, lens, num_groups=8, eps=1e-5):
+        return op(x_, scale, bias, lens, num_groups, eps)
+
+    default = unet_mod.gn_mish_mask
+    req = {0: [], 1: []}
+    try:
+        for which in OP_TURNS:
+            unet_mod.gn_mish_mask = via_op if which else direct
+            kernels.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            synth.synthesize(texts[0], face)
+            req[which].append((time.perf_counter() - t0) * 1e3)
+            got = dict(kernels.LAUNCHES)
+            launches.update(got)
+            if got.get(gn_mish.NAME, 0) != K1_PER_EVAL * synth.cfg.timesteps:
+                raise AssertionError(f"[op] a live request launched {got}")
+    finally:
+        unet_mod.gn_mish_mask = default
+    xs = torch.randn((1, 256, 32, 109), device="cuda", dtype=torch.bfloat16)
+    sc, bi = torch.ones(256, device="cuda"), torch.zeros(256, device="cuda")
+    ln = torch.full((1,), 100, dtype=torch.int32, device="cuda")
+    host = {0: [], 1: []}
+    with torch.no_grad():
+        for which in OP_HOST_TURNS:
+            host[which].append(host_us(lambda: (via_op if which else direct)(xs, sc, bi, ln)))
+    out["op"] = {"req_ms": req, "host_us": host}
+    del synths, synth
+    torch.cuda.empty_cache()
+    out["seconds"]["export"] = time.perf_counter() - t_part
+
+    # (b) the bench
+    rc, stdout, stderr, bench_s = run_module(["facegantts_tpu_torch.bench"], 900,
+                                             {"BENCH_TRAIN": "1"})
+    if rc != 0:
+        raise AssertionError(f"[bench] exit {rc}: {stderr[-3000:]}")
+    lines = [json.loads(ln_) for ln_ in stdout.splitlines() if ln_.startswith("{")]
+    metrics = {r["metric"]: r for r in lines}
+    if [r["metric"] for r in lines][-1] != "inference_rtf" or set(metrics) != set(BENCH_METRICS):
+        raise AssertionError(f"[bench] lines {lines}")
+    for r in lines:
+        if not (math.isfinite(r["value"]) and r["value"] > 0):
+            raise AssertionError(f"[bench] {r}")
+    if not 0 < metrics["mfu_parity"]["value"] < 1:
+        raise AssertionError(f"[bench] mfu_parity {metrics['mfu_parity']}")
+    bench_launches = json.loads(next(ln_ for ln_ in stderr.splitlines()[::-1]
+                                     if ln_.startswith("kernel launches: "))[len("kernel launches: "):])
+    launches.update(bench_launches)
+    out["bench"] = {"lines": lines, "stderr": [ln_ for ln_ in stderr.splitlines() if ln_.strip()
+                                               and not ln_.startswith("/") and "arning" not in ln_],
+                    "seconds": bench_s, "launches": bench_launches}
+    out["seconds"]["bench"] = bench_s
+
+    # (c) a traced window of plain training at the Config widths
+    t_part = time.perf_counter()
+    trace_dir = os.path.join(root, "trace")
+    cfg_p = default_config(env={}, overrides=dict(
+        TRAIN_OVERRIDES, eval_interval=0, profile_dir=trace_dir,
+        profile_start_step=PROFILE_WINDOW[0], profile_num_steps=PROFILE_WINDOW[1]))
+    kernels.LAUNCHES.clear()
+    train(cfg_p, os.path.join(root, "train"), sum(PROFILE_WINDOW) + 1,
+          SyntheticDataset(n_items=1024, n_mels=cfg_p.n_mels, seed=0),
+          SyntheticDataset(n_items=512, n_mels=cfg_p.n_mels, seed=1), device="cuda")
+    launches.update(kernels.LAUNCHES)
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"[trace] files {traces}")
+    with open(traces[0]) as f:
+        text = f.read()
+    named = {k: text.count(k) for k in (K1_FWD_KERNEL, K1_BWD_KERNEL, MAS_KERNEL, "train_step")}
+    if not all(named.values()):
+        raise AssertionError(f"[trace] names in {traces[0]}: {named}")
+    out["trace"] = {"file": os.path.relpath(traces[0], ROOT), "bytes": len(text), "named": named,
+                    "launches": dict(kernels.LAUNCHES)}
+    out["seconds"]["trace"] = time.perf_counter() - t_part
+
+    # (d) the FLOP audit at the bench's shape, run beside (a)
+    flops = json.loads(done["utils.flops"][1].strip().splitlines()[-1])
+    if not (all(v > 0 for v in flops.values())
+            and flops["step_measured"] == flops["step"] - 2 * flops["disc_fake"]):
+        raise AssertionError(f"[flops] {flops}")
+    out["flops"] = flops
+    out["seconds"]["flops (beside the export)"] = done["utils.flops"][3]
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    return out
+
+
+def log_tooling(smi, r):
+    """Phase 16's lines from what ``tooling_phase`` returned."""
+    for tag, e in r["export"].items():
+        cli = "".join(f", {k} {v:.1f}" for k, v in e.items() if k.endswith(" s"))
+        log(f"[export {tag}] {smi}: pair {e['pair']}, export {e['export_s']:.1f} s, load "
+            f"{e['load_s']:.1f} s, {e['bytes']} bytes{cli}; loaded against live: " + "; ".join(
+                f"seed {g['seed']} wav {g['wav']:.3e} mel {g['mel']:.3e} bitwise {g['bitwise']}"
+                for g in e["gaps"])
+            + f"; warm ms in turns: loaded {statistics.median(e['loaded_ms']):.2f} (all "
+            f"{[round(v, 2) for v in e['loaded_ms']]}), live {statistics.median(e['live_ms']):.2f} "
+            f"(all {[round(v, 2) for v in e['live_ms']]})")
+    op = r["op"]
+    log(f"[op] {smi}: warm bf16 request, K1 called directly {statistics.median(op['req_ms'][0]):.2f}"
+        f" ms (all {[round(v, 2) for v in op['req_ms'][0]]}), through facegantts::gn_mish_mask "
+        f"{statistics.median(op['req_ms'][1]):.2f} ms (all {[round(v, 2) for v in op['req_ms'][1]]}); "
+        f"host us a K1 call at (1, 256, 32, 109) bf16, in turns: directly "
+        f"{[round(v, 2) for v in op['host_us'][0]]}, through the op "
+        f"{[round(v, 2) for v in op['host_us'][1]]}")
+    for line in r["bench"]["lines"]:
+        log(f"[bench] {json.dumps(line)}")
+    for line in r["bench"]["stderr"]:
+        log(f"[bench stderr] {line}")
+    log(f"[bench] {smi}: {r['bench']['seconds']:.1f} s; launches {r['bench']['launches']}")
+    t = r["trace"]
+    log(f"[trace] {smi}: {t['file']} ({t['bytes']} bytes) names {t['named']}; launches {t['launches']}")
+    f = r["flops"]
+    log(f"[flops] {smi}: python -m facegantts_tpu_torch.utils.flops at (128, 436), batch 32: " + ", ".join(
+        f"{k} {v / 1e12:.4f}" for k, v in f.items()) + f" TFLOP; step_measured / step "
+        f"{f['step_measured'] / f['step']:.4f}: the step reuses the D phase's fake logits, so it "
+        f"runs 2 discriminator forwards on the fake ({2 * f['disc_fake'] / 1e12:.4f} TFLOP) fewer "
+        f"than the composed count, which counts them as JAX's g_loss_fn(reuse=None) does")
+    log(f"[tooling] {smi}: seconds by part " + ", ".join(
+        f"{k} {v:.1f}" for k, v in r["seconds"].items()) + f"; launches {dict(r['launches'])}")
+
+
 def k1_bwd_bf16(shape, gen):
     """K1's backward kernel in bf16 against ``gn_mish_mask_bwd_ref`` at one
     shape (``k1_bwd_case``'s bars: dx 2^-8, dscale and dbias 1e-4 of the
@@ -2736,6 +3072,7 @@ def main(argv=None) -> int:
         return 1
 
     # ---- 1. set-up ---------------------------------------------------------
+    t_script = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -2760,6 +3097,7 @@ def main(argv=None) -> int:
                 log(f"[setup] {k} ptxas: {line.strip()}")
 
     # ---- 2. the main path at full width -------------------------------------
+    log(f"[time] phase 2 starts {time.perf_counter() - t_script:.1f} s into the script")
     face = load_face(os.path.join(ROOT, "test", "face.png"))
     with open(os.path.join(ROOT, "test", "text.txt")) as f:
         texts = [ln.strip() for ln in f if ln.strip()]
@@ -2829,6 +3167,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernel {kernel} never launched on the main path")
 
     # ---- 3. fused_gn_mish 0 against 1, in turns --------------------------------
+    log(f"[time] phase 3 starts {time.perf_counter() - t_script:.1f} s into the script")
     ab = ab_phase(texts, face, cmu, synths[1])
     for fused in (0, 1):
         r = ab[fused]
@@ -2840,6 +3179,7 @@ def main(argv=None) -> int:
             f"{[round(p / 2**30, 2) for p in r['peak']]} GiB")
 
     # ---- 4. K1 against its plain version ---------------------------------------
+    log(f"[time] phase 4 starts {time.perf_counter() - t_script:.1f} s into the script")
     gen = torch.Generator(device="cuda").manual_seed(0)
     eval_shapes = {s for s, _ in K1_EVAL_436}
     shapes = set(eval_shapes)
@@ -2883,6 +3223,7 @@ def main(argv=None) -> int:
                 f"library {fmt_us(dev['library_dev_us'])}")
 
     # ---- 5. kernel vs plain chain through the whole decoder -----------------
+    log(f"[time] phase 5 starts {time.perf_counter() - t_script:.1f} s into the script")
     synth = synths[0]
     cfg = synth.cfg
     plain = FaceTTS.from_config(cfg.replace(fused_gn_mish=0)).eval().cuda()
@@ -2912,6 +3253,7 @@ def main(argv=None) -> int:
         raise AssertionError("[decoder] kernel and plain chain disagree")
 
     # ---- 6. where one request's time goes (bf16, duration cache warm) ---------
+    log(f"[time] phase 6 starts {time.perf_counter() - t_script:.1f} s into the script")
     synth = synths[1]
     for _ in range(3):  # the profiler now and then returns no device events
         kernels.LAUNCHES.clear()
@@ -2941,6 +3283,7 @@ def main(argv=None) -> int:
             log(f"[profile]   {v / 1e3:8.3f} ms  {k[:110]}")
 
     # ---- 7. the training path at full width ----------------------------------
+    log(f"[time] phase 7 starts {time.perf_counter() - t_script:.1f} s into the script")
     tr = train_phase(os.path.join(ROOT, "runs", "chip_smoke_train"))
     cfg_t = tr["cfg"]
     for r, ms in zip(tr["steps"], tr["step_ms"]):
@@ -2982,6 +3325,7 @@ def main(argv=None) -> int:
     del tr["state"]
 
     # ---- 8. GAN training at full width ------------------------------------------
+    log(f"[time] phase 8 starts {time.perf_counter() - t_script:.1f} s into the script")
     gan = gan_phase(os.path.join(ROOT, "runs", "chip_smoke_gan"), old_step)
     cfg_g = gan["cfg"]
     for r, ms in zip(gan["steps"], gan["step_ms"]):
@@ -3115,6 +3459,7 @@ def main(argv=None) -> int:
         f"{fmt_ms(g_dev['pair'])}, library {fmt_ms(g_dev['library'])}")
 
     # ---- 9. FusedGroupNorm (K2's only consumer) and the probe (P1, P2) ---------
+    log(f"[time] phase 9 starts {time.perf_counter() - t_script:.1f} s into the script")
     from facegantts_tpu_torch import probe
     from facegantts_tpu_torch.models.unet import FusedGroupNorm
     from facegantts_tpu_torch.ops import groupnorm as gnorm
@@ -3143,6 +3488,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"[probe] launches {probe_launches}")
 
     # ---- 10. the kernels against their plain versions ---------------------------
+    log(f"[time] phase 10 starts {time.perf_counter() - t_script:.1f} s into the script")
     checks = {}
     # the first training step's own inputs, then ragged random ones at every
     # (text, mel) bucket the steps ran (T_x sets the threads per block) and
@@ -3223,6 +3569,7 @@ def main(argv=None) -> int:
         f"{fmt_ms(t_dev['pair'])}, library {fmt_ms(t_dev['library'])}")
 
     # ---- 11. the earlier K1 backward against this one, in turns ------------------
+    log(f"[time] phase 11 starts {time.perf_counter() - t_script:.1f} s into the script")
     if old_build is None:
         log("[K1 bwd turns] not measured: no --old-k1=DIR (an earlier gn_mish.py and "
             "gn_mish.cu) given")
@@ -3258,6 +3605,7 @@ def main(argv=None) -> int:
                 f"{dev['old_dev_us']} ms, new {dev['new_dev_us']} ms")
 
     # ---- 12. persistence and serving from phase 8's GAN state ----------------------
+    log(f"[time] phase 12 starts {time.perf_counter() - t_script:.1f} s into the script")
     per = persist_phase(gan, texts, face, cmu)
     log(f"[persist] {smi}: GAN state at step {per['step']} (batch {cfg_g.per_gpu_batchsize}, Config widths): save_step {per['save_ms']:.1f} ms, "
         f"save_epoch (top-k + best) {per['save_epoch_ms']:.1f} ms, {per['bytes']} bytes a "
@@ -3300,6 +3648,7 @@ def main(argv=None) -> int:
         raise AssertionError("[persist] " + "; ".join(per["fails"]))
 
     # ---- 13. the training options -----------------------------------------------------
+    log(f"[time] phase 13 starts {time.perf_counter() - t_script:.1f} s into the script")
     import gc
 
     gc.collect()
@@ -3309,6 +3658,7 @@ def main(argv=None) -> int:
     log(f"[options] launches over the loop runs: {dict(opt_launches)}")
 
     # ---- 14. the data and evaluation path -----------------------------------------------
+    log(f"[time] phase 14 starts {time.perf_counter() - t_script:.1f} s into the script")
     gc.collect()
     torch.cuda.empty_cache()
     de = data_eval_phase(smi, os.path.join(ROOT, "test", "face.png"))
@@ -3341,6 +3691,7 @@ def main(argv=None) -> int:
     de_launches = collections.Counter(de["train_launches"])
 
     # ---- 15. the UTMOS-strong SSL MOS model, analysis, weight pins, the sweep --------------
+    log(f"[time] phase 15 starts {time.perf_counter() - t_script:.1f} s into the script")
     gc.collect()
     torch.cuda.empty_cache()
     mo = mos_phase(smi, de)
@@ -3348,6 +3699,14 @@ def main(argv=None) -> int:
     mo_launches = collections.Counter()
     for ll in mo["trial_launches"]:
         mo_launches.update(ll)
+
+    # ---- 16. the tooling slice: export, the bench, a traced window, FLOPs, migration --------
+    log(f"[time] phase 16 starts {time.perf_counter() - t_script:.1f} s into the script")
+    gc.collect()
+    torch.cuda.empty_cache()
+    to = tooling_phase(smi, texts, face, cmu)
+    log_tooling(smi, to)
+    to_launches = to["launches"]
 
     # ---- lines -----------------------------------------------------------------
     f32 = per_eval[(436, torch.float32)]
@@ -3360,15 +3719,17 @@ def main(argv=None) -> int:
         f"shape, launches on the inference ({path_launches[gn_mish.NAME]}), training "
         f"({tr['launches'][gn_mish.NAME]}), GAN ({gan['launches'][gn_mish.NAME]}), "
         f"persistence and serving ({per['launches'][gn_mish.NAME]}), training-option "
-        f"({opt_launches['K1']}), data and evaluation ({de_launches[gn_mish.NAME]}) and sweep "
-        f"trial ({mo_launches[gn_mish.NAME]}, phase 15's trainer processes) paths; "
+        f"({opt_launches['K1']}), data and evaluation ({de_launches[gn_mish.NAME]}), sweep "
+        f"trial ({mo_launches[gn_mish.NAME]}, phase 15's trainer processes) and tooling "
+        f"({to_launches[gn_mish.NAME]}: exported programs, the bench's process, the traced "
+        f"training) paths; "
         f"{gn_mish.BWD_NAME} times are one training "
         f"evaluation's {K1_PER_EVAL} backward launches (B=64), max_abs_err against "
         f"gn_mish_mask_bwd_ref, launches on the training, GAN, resumed-GAN, "
         f"training-option ({opt_launches['K1 bwd bf16']} of them bf16; the bf16 backward's own "
-        f"times are phase 13's), data and evaluation and sweep trial paths; {mas_mod.NAME} at "
-        f"{MAS_SHAPES[-1]}, launches on the training, GAN, resumed-GAN, training-option, "
-        f"data and evaluation and sweep trial paths; {gnorm.NAME} summed "
+        f"times are phase 13's), data and evaluation, sweep trial and tooling paths; "
+        f"{mas_mod.NAME} at {MAS_SHAPES[-1]}, launches on the training, GAN, resumed-GAN, "
+        f"training-option, data and evaluation, sweep trial and tooling paths; {gnorm.NAME} summed "
         f"over the "
         f"{len(K1_TRAIN)} "
         f"training U-Net shapes, launches in the FusedGroupNorm run; probes at their shapes, "
@@ -3381,17 +3742,21 @@ def main(argv=None) -> int:
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
     k1_by = collections.Counter(r["bound_by"] for r in results.values()).most_common(1)[0][0]
+    log(f"[lines] the whole script: {time.perf_counter() - t_script:.1f} s; phase 16 "
+        f"{to['seconds']['phase']:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [
         entry(gn_mish.NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:119",
               path_launches[gn_mish.NAME] + tr["launches"][gn_mish.NAME]
               + gan["launches"][gn_mish.NAME] + per["launches"][gn_mish.NAME]
-              + opt_launches["K1"] + de_launches[gn_mish.NAME] + mo_launches[gn_mish.NAME],
+              + opt_launches["K1"] + de_launches[gn_mish.NAME] + mo_launches[gn_mish.NAME]
+              + to_launches[gn_mish.NAME],
               dict(f32, bound_by=k1_by), k1_err),
         entry(gn_mish.BWD_NAME, "csrc/gn_mish.cu", "facegantts_tpu/ops/gn_mish.py:262",
               tr["launches"][gn_mish.BWD_NAME] + gan["launches"][gn_mish.BWD_NAME]
               + per["launches"][gn_mish.BWD_NAME] + opt_launches["K1 bwd"]
-              + de_launches[gn_mish.BWD_NAME] + mo_launches[gn_mish.BWD_NAME],
+              + de_launches[gn_mish.BWD_NAME] + mo_launches[gn_mish.BWD_NAME]
+              + to_launches[gn_mish.BWD_NAME],
               dict(bwd_only, library_ms=None, bound_by=(
                   collections.Counter(checks[("k1_bwd", s)]["bwd"]["bound_by"]
                                       for s, _ in K1_TRAIN).most_common(1)[0][0])),
@@ -3399,7 +3764,7 @@ def main(argv=None) -> int:
         entry(mas_mod.NAME, "csrc/mas.cu", "facegantts_tpu/ops/mas.py:38",
               tr["launches"][mas_mod.NAME] + gan["launches"][mas_mod.NAME]
               + per["launches"][mas_mod.NAME] + opt_launches["MAS"] + de_launches[mas_mod.NAME]
-              + mo_launches[mas_mod.NAME], mas_big, 0.0),
+              + mo_launches[mas_mod.NAME] + to_launches[mas_mod.NAME], mas_big, 0.0),
         entry(gnorm.NAME, "csrc/groupnorm.cu", "facegantts_tpu/ops/groupnorm.py:72",
               gn_launches[gnorm.NAME], dict(k2, bound_by=collections.Counter(
                   checks[("k2", s)]["bound_by"] for s, _ in K1_TRAIN).most_common(1)[0][0]),

@@ -32,6 +32,11 @@ and rstd; the backward computes the closed form (``gn_mish_mask_bwd``)::
 
 with m the time mask.  The statistics cover the masked tail, so dx is not
 zero there.  ``lens`` gets no gradient.
+
+For ``torch.export`` the no-grad forward is also the registered operator
+``facegantts::gn_mish_mask`` (:func:`gn_mish_mask_op`), which an exported
+program holds as one node; the live path launches the kernel directly
+(``chip_smoke.py`` phase 16 times a request both ways).
 """
 
 import copy
@@ -44,6 +49,7 @@ from facegantts_tpu_torch.ops import kernels
 
 NAME = "gn_mish_mask"
 BWD_NAME = "gn_mish_mask_bwd"
+OP_NAME = "facegantts::gn_mish_mask"  # the registered no-grad forward (torch.library)
 
 _MAX_CLUSTER = 16  # blocks per cluster: non-portable above 8 (csrc/gn_mish.cu)
 _TILE_BYTES = 112 * 1024  # a block's share of its slab in shared memory: two blocks an SM
@@ -275,9 +281,33 @@ def gn_mish_mask(x, scale, bias, lens, num_groups: int = 8, eps: float = 1e-5):
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
                                     or bias.requires_grad):
         return _GnMishMask.apply(x, scale, bias, lens, num_groups, eps)
+    if torch.compiler.is_exporting():  # an exported program holds the op, not its body
+        return gn_mish_mask_op(x, scale, bias, lens, num_groups, eps)
     if x.device.type == "cpu":
         return gn_mish_mask_ref(x, scale, bias, lens, num_groups, eps)
     return _launch_fwd(x, scale, bias, lens, num_groups, eps, False)[0]
+
+
+@torch.library.custom_op(OP_NAME, mutates_args=(), device_types="cuda")
+def gn_mish_mask_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    lens: torch.Tensor, num_groups: int, eps: float) -> torch.Tensor:
+    """K1's no-grad forward as the registered operator ``facegantts::gn_mish_mask``,
+    which ``torch.export`` keeps as one node: on a CUDA tensor the kernel
+    launch, on a CPU tensor :func:`gn_mish_mask_ref`.  No autograd is
+    registered; the gradient path is :class:`_GnMishMask`.  A program that
+    holds the op needs this module imported before ``torch.export.load``."""
+    _check_inputs(x, scale, bias, lens, num_groups)
+    return _launch_fwd(x, scale, bias, lens, num_groups, eps, False)[0]
+
+
+@gn_mish_mask_op.register_kernel("cpu")
+def _gn_mish_mask_op_cpu(x, scale, bias, lens, num_groups, eps):
+    return gn_mish_mask_ref(x, scale, bias, lens, num_groups, eps)
+
+
+@gn_mish_mask_op.register_fake
+def _gn_mish_mask_op_fake(x, scale, bias, lens, num_groups, eps):
+    return torch.empty_like(x)
 
 
 def _launch_fwd(x, scale, bias, lens, num_groups: int, eps: float, keep_stats: bool):

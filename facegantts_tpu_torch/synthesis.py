@@ -144,22 +144,23 @@ class Synthesizer:
         )
 
     def _decode(self, enc, ty: int, n_timesteps: int, temperature: float, stoc: bool,
-                seed: int):
+                seed: int, noise: Optional[torch.Tensor] = None):
         """Diffusion decode at mel bucket ``ty`` in ``self.dtype``; returns
-        (mel, y_lengths)."""
+        (mel, y_lengths).  The initial noise is drawn from a generator seeded
+        with ``seed``, or is ``noise`` (B, n_mels, ty) where given."""
         mu_x, w_ceil, x_mask, y_lengths, spk_e = enc
         mu_x, w_ceil, x_mask, spk_e = (t.to(self.dtype) for t in (mu_x, w_ceil, x_mask, spk_e))
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = torch.Generator(device=self.device).manual_seed(seed) if noise is None else None
         _, dec, _, y_len = self.model.decode(
             mu_x, w_ceil, x_mask, y_lengths, spk_e, n_timesteps, ty, temperature, stoc,
-            generator=gen,
+            generator=gen, noise=noise,
         )
         return dec, y_len
 
     def _decode_vocode(self, enc, ty: int, n_timesteps: int, temperature: float,
-                       stoc: bool, seed: int):
+                       stoc: bool, seed: int, noise: Optional[torch.Tensor] = None):
         """:meth:`_decode` + vocoder; returns (wav f32, mel f32, y_lengths)."""
-        dec, y_len = self._decode(enc, ty, n_timesteps, temperature, stoc, seed)
+        dec, y_len = self._decode(enc, ty, n_timesteps, temperature, stoc, seed, noise)
         wav = self.vocoder(dec)
         return wav.float(), dec.float(), y_len
 

@@ -18,8 +18,12 @@ In-training evaluation: with a non-zero ``eval_interval`` the loop builds an
 ``metrics.jsonl``) and every ``eval_interval`` steps synthesizes validation
 items with the live weights, logs ``eval/*``, mirrors each sample to
 TensorBoard and, when ``checkpoint_monitor`` is one of the evaluation's
-keys ("Composite Metric"), ranks a checkpoint on it.  Not ported yet, and so
-not run: profiling (``profile_dir``).
+keys ("Composite Metric"), ranks a checkpoint on it.
+
+Profiling: with ``profile_dir`` set, steps ``profile_start_step`` to
+``profile_start_step + profile_num_steps`` are traced by ``torch.profiler``
+(``utils/profiling.py``) into a TensorBoard / Chrome trace under it, with
+the step, validation and checkpoint spans annotated.
 """
 
 import json
@@ -42,6 +46,7 @@ from facegantts_tpu_torch.train.step import (
     make_gan_train_step,
     make_plain_train_step,
 )
+from facegantts_tpu_torch.utils.profiling import StepProfiler, annotate
 
 
 class MetricLogger:
@@ -238,7 +243,6 @@ def train(cfg: Config, work_dir: str = "runs/default", max_steps: Optional[int] 
 
 
 def _train(cfg, work_dir, max_steps, train_ds, val_ds, device, shutdown) -> TrainState:
-    print("[INFO] not ported yet, so not run: profiling (profile_dir)")
     if train_ds is None:
         train_ds = load_packed(cfg, "train") or SyntheticDataset(n_items=256, n_mels=cfg.n_mels)
     if val_ds is None:
@@ -255,6 +259,8 @@ def _train(cfg, work_dir, max_steps, train_ds, val_ds, device, shutdown) -> Trai
                                  snapshot_epochs=cfg.snapshot_epochs)
     stopper = EarlyStopping(cfg.early_stopping_patience, cfg.early_stopping_min_delta)
     watchdog = DivergenceWatchdog()
+    profiler = StepProfiler(cfg.profile_dir, cfg.profile_start_step, cfg.profile_num_steps,
+                            device)
     forked = []
     if device.type == "cuda":
         forked = [device.index if device.index is not None else torch.cuda.current_device()]
@@ -278,8 +284,10 @@ def _train(cfg, work_dir, max_steps, train_ds, val_ds, device, shutdown) -> Trai
             t_last, n_last = time.time(), step
             while step < max_steps:
                 for b in loader.epoch(epoch):
+                    profiler.step(step)
                     flags = gan_flags(cfg, epoch, step) if cfg.use_gan else {}
-                    state, metrics = train_step(state, b, generator, **flags)
+                    with annotate("train_step"):
+                        state, metrics = train_step(state, b, generator, **flags)
                     step += 1
                     if shutdown.requested:
                         print(f"[INFO] shutdown signal received; checkpointing at step "
@@ -299,15 +307,17 @@ def _train(cfg, work_dir, max_steps, train_ds, val_ds, device, shutdown) -> Trai
                         logger.log(step, m)
                         print(f"[step {step}] " + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
                     if step % cfg.save_step == 0:
-                        policy.save_step(state, step)
+                        with annotate("checkpoint"):
+                            policy.save_step(state, step)
                     if evaluator is not None and step % cfg.eval_interval == 0:
                         _evaluate(evaluator, state, step, epoch, work_dir, logger, policy)
                     if step >= max_steps:
                         break
                 val_kw = ({"train_disc": gan_flags(cfg, epoch, step)["train_disc"]}
                           if cfg.use_gan else {})
-                avg = _validate(state, val_step, val_loader, generator, logger, step, epoch,
-                                **val_kw)
+                with annotate("validation"):
+                    avg = _validate(state, val_step, val_loader, generator, logger, step, epoch,
+                                    **val_kw)
                 if avg is not None:
                     if policy.monitor in avg:
                         policy.save_epoch(state, step, epoch, avg)
@@ -320,4 +330,5 @@ def _train(cfg, work_dir, max_steps, train_ds, val_ds, device, shutdown) -> Trai
         policy.save_step(state, step)
         return state
     finally:
+        profiler.close()
         logger.close()
